@@ -36,6 +36,11 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running golden tests (set MOIP_RUN_SLOW=1)"
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips where torch.cuda.is_available() "
+        "is False",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,137 @@
+"""The port's front driver and CLI on the CPU: the bundled golden fronts,
+the reference CLI's .out, and a run with jax made unimportable."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from moip_aira_tpu.cli import main as ref_main
+from moip_aira_tpu.io import read_problem
+from moip_aira_tpu_torch.api import solve_front
+from moip_aira_tpu_torch.cli import main as port_main
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EX = os.path.join(REPO, "examples")
+
+
+def bundled_front(name):
+    """The golden front, parsed as tests/test_bundled_examples.py does."""
+    rows = []
+    with open(f"{EX}/{name}.out") as fh:
+        for line in fh:
+            parts = line.split()
+            if parts and all(p.lstrip("-").isdigit() for p in parts):
+                rows.append([int(p) for p in parts])
+    return np.array(rows)
+
+
+def filtered(path):
+    """An .out file as the golden contract binds it (the verify recipe's
+    filter): whitespace-insensitive, without timing/IP-count/banner lines."""
+    with open(path) as fh:
+        return [
+            line.split()
+            for line in fh
+            if not any(k in line for k in ("seconds", "solved", "Using"))
+        ]
+
+
+@pytest.mark.parametrize(
+    "name,cfg",
+    [
+        ("G2AP05", dict(n_workers=2)),  # k=2: the bound sweep
+        ("G3AP05", dict(n_workers=2)),  # k=3: the AIRA scheduler
+        ("G3KP10", dict(n_workers=2)),
+        ("G2AP05", dict(n_workers=2, split=True)),  # EPP strips
+    ],
+    ids=["G2AP05", "G3AP05", "G3KP10", "G2AP05-split"],
+)
+def test_wave_front_matches_golden(name, cfg):
+    p = read_problem(os.path.join(EX, f"{name}.lp"))
+    front = solve_front(p, backend="wave", device="cpu", **cfg)
+    expect = bundled_front(name)
+    assert front.points.shape == expect.shape
+    assert (front.points == expect).all()
+    stats = front.backend_stats
+    assert stats["backend"] == "wave" and stats["device_waves"] > 0
+    assert stats["kernel_launches"] == 0  # the CPU runs the plain version
+
+
+def test_cli_out_matches_reference_cli(tmp_path):
+    ex = os.path.join(EX, "G3AP05.lp")
+    ours, theirs = tmp_path / "port.out", tmp_path / "ref.out"
+    assert port_main(["-p", ex, "-o", str(ours), "--backend", "wave",
+                      "--device", "cpu", "-t", "2"]) == 0
+    assert ref_main(["-p", ex, "-o", str(theirs), "--backend", "wave",
+                     "-t", "2"]) == 0
+    assert filtered(ours) == filtered(theirs)
+    assert filtered(ours) == filtered(os.path.join(EX, "G3AP05.out"))
+
+
+def test_port_runs_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from moip_aira_tpu_torch.api import solve_front\n"
+        "from moip_aira_tpu_torch.io import read_problem\n"
+        f"p = read_problem({os.path.join(EX, 'G2AP05.lp')!r})\n"
+        "f = solve_front(p, backend='wave', device='cpu')\n"
+        "import json\n"
+        "print(json.dumps(f.points.tolist()))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = np.array(json.loads(proc.stdout.strip().splitlines()[-1]))
+    assert (got == bundled_front("G2AP05")).all()
+
+
+def test_unported_paths_raise(tmp_path):
+    p = read_problem(os.path.join(EX, "G2AP05.lp"))
+    with pytest.raises(NotImplementedError, match="K4"):
+        solve_front(p, backend="wave", device="cpu", dp="on")
+    with pytest.raises(NotImplementedError):
+        solve_front(p, backend="wave", device="cpu", mesh_devices=2)
+    with pytest.raises(NotImplementedError):
+        solve_front(p, backend="jax", device="cpu")
+    out = tmp_path / "x.out"
+    ex = os.path.join(EX, "G2AP05.lp")
+    assert port_main(["-p", ex, "-o", str(out), "--backend", "jax"]) == 1
+    assert not out.exists()
+
+
+def test_chip_smoke_imports_only_the_port():
+    """The smoke drives the port alone: no import of jax or of the JAX
+    package, only torch, the standard library and moip_aira_tpu_torch."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    tops = {n.split(".")[0] for n in names}
+    assert "moip_aira_tpu_torch" in tops and "torch" in tops
+    assert not tops & {"jax", "jaxlib", "moip_aira_tpu"}, sorted(names)
+
+
+def test_chip_smoke_fails_without_a_card():
+    """Without CUDA the smoke exits non-zero and prints no result line."""
+    if __import__("torch").cuda.is_available():
+        pytest.skip("a card is present: the smoke would run")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py")],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
