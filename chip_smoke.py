@@ -2,21 +2,37 @@
 """Smoke test of the PyTorch/CUDA port (moip_aira_tpu_torch) on one GPU.
 
 Drives the port's main path on the card — read_problem -> solve_front ->
-bound sweep (k=2) or AIRA scheduler (k>=3) -> WaveLexBackend -> K1, the
-hand-written CUDA simplex kernel -> f64 certification -> host branch and
-bound — and fails unless every phase passes:
+bound sweep (k=2) or AIRA scheduler (k>=3) -> WaveLexBackend -> the
+hand-written CUDA simplex kernels, K1 (dense tableau, LPs of n + m < 512
+columns) and K2 (revised simplex, wider LPs) -> f64 certification -> host
+branch and bound — and fails unless every phase passes:
 
-1. probe:   the card (nvidia-smi), torch, CUDA and nvcc versions;
-2. build:   K1 from csrc/dense_simplex.cu, timed;
-3. kernels: K1 against its plain PyTorch version on the card, at 2AP20's
-            and G2AP05's LP shapes with 256 lanes (cold and half-warm):
-            raw outputs equal bit for bit on every lane, then certified
-            status and objective equal;
-4. cli:     `python -m moip_aira_tpu_torch --backend wave --device cuda`
-            on G2AP05, G3AP05, G3KP10 and KP2D50, each .out held against
-            its golden, with at most 5% of the LPs re-solved on the host;
-5. real:    the full 2AP20 front (n=400, m=42) through solve_front,
-            held against its golden, with the same bound on re-solves.
+1. probe:     the card (nvidia-smi), torch, CUDA and nvcc versions;
+2. build:     K1 (csrc/dense_simplex.cu) and K2 (csrc/revised_simplex.cu),
+              one nvcc each, started together, each timed;
+3. kernels:   K1 against its plain PyTorch version on the card, at 2AP20's
+              and G2AP05's LP shapes with 256 lanes (cold and half-warm):
+              raw outputs equal bit for bit on every lane, then certified
+              status and objective equal;
+4. revised:   K2 against its plain version at 2AP40's LP shape (82 x 1682,
+              256 lanes, cold and half-warm) and 2AP100's (202 x 10202, 64
+              lanes, cold): raw outputs equal bit for bit on every lane,
+              then how many lanes certify in f64;
+5. crossover: K1 and K2 on the same cold lanes at 2AP20's and 2AP40's
+              shapes (256 lanes): both times, and equal certified status
+              and objective.  Phases 3-5 run the kernels at their wrappers'
+              pivot cap of 2000; the fronts below take the backend's
+              (solver/wave.py MAX_ITERS: 6000 for K2);
+6. cli:       `python -m moip_aira_tpu_torch --backend wave --device cuda`
+              on G2AP05, G3AP05, G3KP10 and KP2D50 (all K1), each .out held
+              against its golden, with at most 5% of the LPs re-solved on
+              the host;
+7. real:      the full 2AP20 front (n=400, m=42, K1) through solve_front,
+              held against its golden, with the same bound on re-solves;
+8. wide:      the full 2AP40 front (n=1600, m=82) through solve_front with
+              the engine left to the backend (K2, warm starts on), held
+              against its golden: K2 launched once per device wave, K1
+              never, the same bound on re-solves.
 
 Each phase prints one JSON line.  The last two lines are the kernel table
 ({"kernels": [...]}) and {"ok": true, "device": {...}}.  Any failure raises
@@ -35,12 +51,23 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 EXAMPLES = os.path.join(REPO, "examples")
 CLI_INSTANCES = ("G2AP05", "G3AP05", "G3KP10", "KP2D50")
 KERNEL_SHAPES = ("2AP20", "G2AP05")
+#: K2's shapes: (instance, lanes, starts)
+REVISED_SHAPES = (("2AP40", 256, ("cold", "warm")), ("2AP100", 64, ("cold",)))
+CROSSOVER_SHAPES = ("2AP20", "2AP40")
+KERNELS = ("dense_simplex", "revised_simplex")
 LANES = 256
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes per second and float32 operations per second outside the tensor
+# cores; a kernel's bound is the larger of its bytes and its operations
+# over these
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 OBJ_RTOL = 1e-3  # f32 objectives of two pivot paths (tests/test_simplex.py)
 CERT_RTOL = 1e-7  # certified f64 optima of the same LP from two bases
 # at most this share of a front's device LPs may fail f64 certification and
@@ -104,6 +131,91 @@ def check_fallbacks(name, fallbacks, lps):
         )
 
 
+def bound(kernel, m, n, iters, warm_lanes):
+    """The least time the card could take for one launch of ``kernel`` on
+    these lanes, in ms, and what sets it ("bytes" or "operations").
+
+    Bytes: W and each lane's inputs (c, lo, hi, wb, wa) read once, its
+    outputs (status, obj, x, basis, at_upper, iters) written once.
+    Operations, in float32 at 2 per multiply-add, from this run's pivot
+    counts ``iters`` (bound flips counted as pivots) and warm lanes: both
+    kernels start with the basic solution (2 m nc); each K1 iteration
+    prices and updates the m x nc tableau (4 m nc) and a warm K1 lane
+    rebuilds it in m steps (2 m^2 nc); each K2 iteration prices against W
+    and computes y, alpha and the B^-1 update (2 (m nc + 3 m^2)) and a warm
+    K2 lane rebuilds [P1 | -I] in m steps (4 m^3)."""
+    import numpy as np
+
+    nc = n + m
+    B = len(iters)
+    nbytes = 4 * (m * nc + B * (4 * nc + m) + B * (3 + n + m + nc))
+    pivots = float(np.sum(iters))
+    if kernel == "dense_simplex":
+        ops = pivots * 4 * m * nc + warm_lanes * 2 * m * m * nc
+    else:
+        ops = pivots * 2 * (m * nc + 3 * m * m) + warm_lanes * 4 * m**3
+    ops += B * 2 * m * nc
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_F32_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def events_ms(fn):
+    """``fn()``'s result and its milliseconds, by CUDA events, one run."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def scaled_lanes(p, row_scale, rng, name, lanes, dev):
+    """``_lanes`` of instance ``p`` as f32 CUDA tensors with the logical
+    bounds row-scaled as the wave scales them, and the unscaled f64 arrays
+    certification reads."""
+    import torch
+
+    c, lo, hi = _lanes(p, rng, golden_front(name), lanes)
+    lo_s, hi_s = lo.copy(), hi.copy()
+    lo_s[:, p.n :] *= row_scale
+    hi_s[:, p.n :] *= row_scale
+
+    def t32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+
+    return (t32(c), t32(lo_s), t32(hi_s)), (c, lo, hi)
+
+
+def cold_start(lanes, m, nc, dev):
+    import torch
+
+    return (
+        torch.full((lanes, m), -1, dtype=torch.int32, device=dev),
+        torch.zeros((lanes, nc), dtype=torch.int32, device=dev),
+    )
+
+
+def assert_bitwise(label, out_k, out_p):
+    """Every raw output of every lane equal: the kernels and their plain
+    versions sum in one fixed order.  Checked before certification, whose
+    host re-solves would hide a kernel that gave up or claimed wrongly."""
+    import torch
+
+    for f in out_k._fields:
+        a, b = getattr(out_k, f), getattr(out_p, f)
+        if not torch.equal(a, b):
+            diff = (a != b).reshape(a.shape[0], -1).any(dim=1)
+            bad = torch.nonzero(diff).flatten()[:10].tolist()
+            raise AssertionError(
+                f"{label}: the kernel's raw {f} differs from the plain "
+                f"version's on lanes {bad}"
+            )
+
+
 def phase_probe():
     import torch
 
@@ -132,20 +244,28 @@ def phase_probe():
 
 
 def phase_build():
+    """Both kernels built at once, one nvcc each."""
     from moip_aira_tpu_torch.kernels.build import build, load
 
-    t0 = time.perf_counter()
-    lib = build("dense_simplex")
-    load("dense_simplex")
-    emit({
-        "phase": "build",
-        "kernel": "dense_simplex",
-        "seconds": time.perf_counter() - t0,
-        "library": os.path.relpath(lib, REPO),
-    })
+    def timed(name):
+        t0 = time.perf_counter()
+        lib = build(name)
+        return lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        done = dict(zip(KERNELS, pool.map(timed, KERNELS)))
+    for name in KERNELS:
+        lib, seconds = done[name]
+        load(name)
+        emit({
+            "phase": "build",
+            "kernel": name,
+            "seconds": seconds,
+            "library": os.path.relpath(lib, REPO),
+        })
 
 
-def _lanes(problem, rng, front):
+def _lanes(problem, rng, front, lanes=LANES):
     """LP lanes as the wave builds them: per lane one stage objective, an
     objective-bound box (free, or cut inside the golden front's range) and,
     on about half the lanes, a few branching fixes of integer variables."""
@@ -157,15 +277,15 @@ def _lanes(problem, rng, front):
     n, k = p.n, p.objcnt
     m = p.m_total
     is_min = p.objsen is Sense.MIN
-    c = np.zeros((LANES, n + m))
-    lo = np.zeros((LANES, n + m))
-    hi = np.zeros((LANES, n + m))
+    c = np.zeros((lanes, n + m))
+    lo = np.zeros((lanes, n + m))
+    hi = np.zeros((lanes, n + m))
     ints = np.flatnonzero(p.is_int)
-    for b in range(LANES):
+    for b in range(lanes):
         j = int(rng.integers(k))
         c[b, :n] = (1.0 if is_min else -1.0) * p.C[j]
         srhs = np.full(k, INF if is_min else -INF)
-        root = b < LANES // 8
+        root = b < lanes // 8
         if not root:
             for jj in range(k):
                 if rng.random() < 0.5:
@@ -205,17 +325,10 @@ def phase_kernels(seed):
         k1 = make_cuda_lp_batch(lp_tensors(p, dev).W_dev, dev)
         W = k1.W
         n, m = p.n, p.m_total
-        c, lo, hi = _lanes(p, rng, golden_front(name))
-        lo_s, hi_s = lo.copy(), hi.copy()
-        lo_s[:, n:] *= be._row_scale
-        hi_s[:, n:] *= be._row_scale
-
-        def t32(a):
-            return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
-
-        ct, lot, hit = t32(c), t32(lo_s), t32(hi_s)
-        wb_cold = torch.full((LANES, m), -1, dtype=torch.int32, device=dev)
-        wa_cold = torch.zeros((LANES, n + m), dtype=torch.int32, device=dev)
+        (ct, lot, hit), (c, lo, hi) = scaled_lanes(
+            p, be._row_scale, rng, name, LANES, dev
+        )
+        wb_cold, wa_cold = cold_start(LANES, m, n + m, dev)
         cold = k1(ct, lot, hit, wb_cold, wa_cold)
         # half the lanes warm from the bases the kernel's cold pass returned
         warm_rows = torch.arange(LANES, device=dev) % 2 == 0
@@ -225,19 +338,7 @@ def phase_kernels(seed):
             out_k = k1(ct, lot, hit, wb, wa)
             out_p = dense_lp_batch_ref(W, ct, lot, hit, wb, wa)
             torch.cuda.synchronize()
-            # the raw outputs first: K1 and its plain version sum in one
-            # fixed order, so every field of every lane must be equal —
-            # before certification, whose host re-solves would hide a
-            # kernel that gave up (ITER_LIMIT) or claimed wrongly
-            for f in out_k._fields:
-                a, b = getattr(out_k, f), getattr(out_p, f)
-                if not torch.equal(a, b):
-                    diff = (a != b).reshape(LANES, -1).any(dim=1)
-                    bad = torch.nonzero(diff).flatten()[:10].tolist()
-                    raise AssertionError(
-                        f"{name} {label}: K1's raw {f} differs from the plain "
-                        f"version's on lanes {bad}"
-                    )
+            assert_bitwise(f"K1 {name} {label}", out_k, out_p)
             sides = {}
             for side, out in (("kernel", out_k), ("plain", out_p)):
                 st = out.status.cpu().numpy()
@@ -276,8 +377,12 @@ def phase_kernels(seed):
                 raise AssertionError(f"{name} {label}: f32 objectives differ")
             ms = cuda_ms(lambda: k1(ct, lot, hit, wb, wa))
             plain_ms = cuda_ms(lambda: dense_lp_batch_ref(W, ct, lot, hit, wb, wa))
+            bound_ms, bound_by = bound(
+                "dense_simplex", m, n, K["iters"], int((wb[:, 0] >= 0).sum())
+            )
             row = {
                 "phase": "kernels",
+                "kernel": "dense_simplex",
                 "instance": name,
                 "start": label,
                 "m": m,
@@ -295,9 +400,148 @@ def phase_kernels(seed):
                 "max_abs_err": float(err.max()) if err.size else 0.0,
                 "ms": ms,
                 "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
             }
             emit(row)
             rows.append(row)
+    return rows
+
+
+def phase_revised(seed):
+    """K2 against revised_lp_batch_ref on the same CUDA inputs, at the
+    shapes the wide front gives it."""
+    import numpy as np
+    import torch
+
+    from moip_aira_tpu_torch.convert import lp_tensors
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.solver.cuda_lp import make_cuda_rev_batch
+    from moip_aira_tpu_torch.solver.simplex_torch import OPTIMAL, revised_lp_batch_ref
+    from moip_aira_tpu_torch.solver.verify import LPVerifier
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed + 1)
+    rows = []
+    for name, lanes, starts in REVISED_SHAPES:
+        p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+        t = lp_tensors(p, dev)
+        k2 = make_cuda_rev_batch(t.W_dev, dev)
+        verifier = LPVerifier(t.W_np)
+        n, m = p.n, p.m_total
+        (ct, lot, hit), (c, lo, hi) = scaled_lanes(
+            p, t.row_scale, rng, name, lanes, dev
+        )
+        wb_cold, wa_cold = cold_start(lanes, m, n + m, dev)
+        first = k2(ct, lot, hit, wb_cold, wa_cold)
+        # half the lanes warm from the bases the kernel's cold pass returned
+        warm_rows = torch.arange(lanes, device=dev) % 2 == 0
+        starts_wb = {
+            "cold": (wb_cold, wa_cold),
+            "warm": (
+                torch.where(warm_rows[:, None], first.basis, -1).contiguous(),
+                torch.where(warm_rows[:, None], first.at_upper, 0).contiguous(),
+            ),
+        }
+        for label in starts:
+            wb, wa = starts_wb[label]
+            out_k = k2(ct, lot, hit, wb, wa)
+            out_p, plain_ms = events_ms(
+                lambda: revised_lp_batch_ref(k2.W, ct, lot, hit, wb, wa)
+            )
+            assert_bitwise(f"K2 {name} {label}", out_k, out_p)
+            st = out_k.status.cpu().numpy()
+            cert = verifier.certify(
+                c, lo, hi, st, out_k.basis.cpu().numpy(),
+                out_k.at_upper.cpu().numpy().astype(bool),
+            )
+            iters = out_k.iters.cpu().numpy()
+            ms = cuda_ms(lambda: k2(ct, lot, hit, wb, wa))
+            bound_ms, bound_by = bound(
+                "revised_simplex", m, n, iters, int((wb[:, 0] >= 0).sum())
+            )
+            row = {
+                "phase": "revised",
+                "kernel": "revised_simplex",
+                "instance": name,
+                "start": label,
+                "m": m,
+                "nc": n + m,
+                "lanes": lanes,
+                "optimal": int((st == OPTIMAL).sum()),
+                "infeasible": int((st == 1).sum()),
+                "cert_ok": int(cert.ok.sum()),
+                "mean_iters": float(iters.mean()),
+                "bitwise_equal": True,
+                "max_abs_err": 0.0,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def phase_crossover(seed):
+    """K1 and K2 on the same cold lanes, where the reference's threshold
+    (n + m >= 512) switches between them: both times, and the same
+    certified answers."""
+    import numpy as np
+    import torch
+
+    from moip_aira_tpu_torch.convert import lp_tensors
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.solver.cuda_lp import make_cuda_lp_batch, make_cuda_rev_batch
+    from moip_aira_tpu_torch.solver.simplex_torch import OPTIMAL
+    from moip_aira_tpu_torch.solver.wave import WaveLexBackend
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed + 2)
+    rows = []
+    for name in CROSSOVER_SHAPES:
+        p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+        t = lp_tensors(p, dev)
+        be = WaveLexBackend(p, device=dev, fragments=False)  # certifies only
+        n, m = p.n, p.m_total
+        (ct, lot, hit), (c, lo, hi) = scaled_lanes(
+            p, t.row_scale, rng, name, LANES, dev
+        )
+        wb, wa = cold_start(LANES, m, n + m, dev)
+        sides = {}
+        for kname, make in (("K1", make_cuda_lp_batch), ("K2", make_cuda_rev_batch)):
+            kern = make(t.W_dev, dev)
+            out = kern(ct, lot, hit, wb, wa)
+            st_c, objv, _ = be._certify_wave(
+                c, lo, hi, out.status.cpu().numpy(), out.basis.cpu().numpy(),
+                out.at_upper.cpu().numpy(),
+            )
+            sides[kname] = dict(
+                status=st_c, obj=objv, iters=out.iters.cpu().numpy(),
+                ms=cuda_ms(lambda: kern(ct, lot, hit, wb, wa)),
+            )
+        k1, k2 = sides["K1"], sides["K2"]
+        if not np.array_equal(k1["status"], k2["status"]):
+            bad = np.flatnonzero(k1["status"] != k2["status"])
+            raise AssertionError(f"{name}: K1 and K2 certify other statuses on {bad[:10]}")
+        opt = k1["status"] == OPTIMAL
+        if not np.allclose(k1["obj"][opt], k2["obj"][opt], rtol=CERT_RTOL, atol=CERT_RTOL):
+            raise AssertionError(f"{name}: K1 and K2 certify other objectives")
+        row = {
+            "phase": "crossover",
+            "instance": name,
+            "m": m,
+            "nc": n + m,
+            "lanes": LANES,
+            "optimal": int(opt.sum()),
+            "k1_ms": k1["ms"],
+            "k2_ms": k2["ms"],
+            "k1_mean_iters": float(k1["iters"].mean()),
+            "k2_mean_iters": float(k2["iters"].mean()),
+        }
+        emit(row)
+        rows.append(row)
     return rows
 
 
@@ -334,10 +578,12 @@ def phase_cli():
             if filtered(out) != filtered(os.path.join(EXAMPLES, f"{name}.out")):
                 raise AssertionError(f"{name}: the front differs from the golden")
             launches = stats.get("kernel_launches", 0)
-            if not (launches > 0 and launches == stats["device_waves"]):
+            if stats.get("kernel") != "dense_simplex" or not (
+                launches > 0 and launches == stats["device_waves"]
+            ):
                 raise AssertionError(
-                    f"{name}: K1 launches {launches} != device waves "
-                    f"{stats['device_waves']}"
+                    f"{name}: {stats.get('kernel')} launches {launches}, "
+                    f"device waves {stats['device_waves']} (want K1 on each)"
                 )
             check_fallbacks(name, stats["verify_fallbacks"], stats["lp_count"])
             ips = next(
@@ -359,51 +605,63 @@ def phase_cli():
     return rows
 
 
-def phase_real():
-    """The full 2AP20 front at the bench's widths, in this process."""
+def phase_front(phase, name, kernel):
+    """The full front of ``name`` at the bench's widths, in this process,
+    with the LP engine left to the backend's shape rule: ``kernel`` must
+    serve every device wave and the other kernel none."""
     import numpy as np
     import torch
 
     from moip_aira_tpu_torch.api import solve_front
     from moip_aira_tpu_torch.io import read_problem
-    from moip_aira_tpu_torch.trace import GLOBAL_TIMINGS
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
     from moip_aira_tpu_torch.solver.wave import WaveLexBackend
+    from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
 
-    p = read_problem(os.path.join(EXAMPLES, "2AP20.lp"))
+    p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
     be = WaveLexBackend(
         p, device="cuda", fragments=False, batch_width=2048, nodes_per_task=32
     )
     spans0 = dict(GLOBAL_TIMINGS.totals)
-    be.lp_kernel.launches = 0
     torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     front = solve_front(p, backend=be, device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
     # host seconds by span: wave.device_lp is the host waiting on the card
     spans = {
         k: v - spans0.get(k, 0.0)
         for k, v in GLOBAL_TIMINGS.totals.items()
         if v - spans0.get(k, 0.0) > 0.0
     }
-    launches = be.lp_kernel.launches
-    if not np.array_equal(front.points, golden_front("2AP20")):
-        raise AssertionError("2AP20: the front differs from the golden")
-    if not (launches > 0 and launches == be.device_waves):
+    if not np.array_equal(front.points, golden_front(name)):
+        raise AssertionError(f"{name}: the front differs from the golden")
+    others = {k: v for k, v in launches.items() if k != kernel}
+    if not (
+        be.lp_kernel.kernel == kernel
+        and launches[kernel] > 0
+        and launches[kernel] == be.device_waves
+        and not any(others.values())
+    ):
         raise AssertionError(
-            f"2AP20: K1 launches {launches} != device waves {be.device_waves}"
+            f"{name}: launches {launches} over {be.device_waves} device waves "
+            f"(want {kernel} on each, no other kernel)"
         )
-    check_fallbacks("2AP20", be.verify_fallbacks, be.lp_count)
+    check_fallbacks(name, be.verify_fallbacks, be.lp_count)
     row = {
-        "phase": "real",
-        "instance": "2AP20",
+        "phase": phase,
+        "instance": name,
+        "engine": be.engine,
+        "warm_start": be.warm_start,
         "seconds": seconds,
         "points": int(front.points.shape[0]),
         "ips": int(front.ip_count),
         "waves": be.device_waves,
         "lps": be.lp_count,
         "verify_fallbacks": be.verify_fallbacks,
-        "launches": launches,
+        "launches": launches[kernel],
         "host_spans_seconds": spans,
         "golden": True,
     }
@@ -430,26 +688,41 @@ def main() -> int:
 
     phase_probe()
     phase_build()
-    kernel_rows = phase_kernels(args.seed)
+    k1_rows = phase_kernels(args.seed)
+    k2_rows = phase_revised(args.seed)
+    phase_crossover(args.seed)
     phase_cli()
-    real = phase_real()
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    real = phase_front("real", "2AP20", "dense_simplex")
+    wide = phase_front("wide", "2AP40", "revised_simplex")
+    if "jax" in sys.modules or "moip_aira_tpu" in sys.modules:
+        raise AssertionError("the port imported jax or the JAX package")
 
-    big = next(
-        r for r in kernel_rows if r["instance"] == "2AP20" and r["start"] == "cold"
-    )
-    emit({
-        "kernels": [{
-            "name": "dense_simplex",
+    def entry(name, replaces, rows, main, shape):
+        row = next(
+            r for r in rows if r["instance"] == shape and r["start"] == "cold"
+        )
+        return {
+            "name": name,
             "route": "cuda",
-            "source": "moip_aira_tpu_torch/csrc/dense_simplex.cu",
-            "replaces": "moip_aira_tpu/solver/pallas_lp.py:116",
-            "launches": real["launches"],
-            "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
-            "ms": big["ms"],
-            "plain_ms": big["plain_ms"],
-        }]
+            "source": f"moip_aira_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": main["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # no single PyTorch call computes a batched simplex
+            "library_ms": None,
+        }
+
+    emit({
+        "kernels": [
+            entry("dense_simplex", "moip_aira_tpu/solver/pallas_lp.py:116",
+                  k1_rows, real, "2AP20"),
+            entry("revised_simplex", "moip_aira_tpu/solver/pallas_rev.py:102",
+                  k2_rows, wide, "2AP40"),
+        ]
     })
     emit({
         "ok": True,

@@ -11,27 +11,38 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
-from moip_aira_tpu.api import FrontResult as _RefFrontResult
-from moip_aira_tpu.engine.scheduler import Scheduler
-from moip_aira_tpu.native import make_solutions
-from moip_aira_tpu.parallel.cluster import build_cluster
-from moip_aira_tpu.parallel.split import MAX_WORKERS_NORMAL_SPLIT, split_setup
-from moip_aira_tpu.parallel.symgroup import max_workers
-from moip_aira_tpu.problem import Problem
-from moip_aira_tpu.sense import INF, Sense
+from moip_aira_tpu_torch.engine.scheduler import Scheduler
+from moip_aira_tpu_torch.native import make_solutions
+from moip_aira_tpu_torch.parallel.cluster import build_cluster
+from moip_aira_tpu_torch.parallel.split import MAX_WORKERS_NORMAL_SPLIT, split_setup
+from moip_aira_tpu_torch.parallel.symgroup import max_workers
+from moip_aira_tpu_torch.problem import Problem
+from moip_aira_tpu_torch.sense import INF, Sense
 
 __all__ = ["FrontResult", "make_backend", "solve_front"]
 
 
 @dataclasses.dataclass
-class FrontResult(_RefFrontResult):
+class FrontResult:
+    #: nondominated points, sorted descending, deduplicated — shape (f, k)
+    points: np.ndarray
+    ip_count: int
+    cpu_seconds: float
+    elapsed_seconds: float
+    rounds: int = 0
+    batch_sizes: Optional[List[int]] = None
     #: counters of the backend that computed the front: the wave backend's
-    #: device_waves, lp_count, verify_fallbacks and K1's kernel_launches
+    #: device_waves, lp_count, verify_fallbacks, and the name and
+    #: kernel_launches of its LP kernel
     backend_stats: Optional[dict] = None
+
+    @property
+    def solution_count(self) -> int:
+        return int(self.points.shape[0])
 
 
 def backend_stats(be) -> dict:
@@ -42,6 +53,7 @@ def backend_stats(be) -> dict:
             stats[key] = int(getattr(be, key))
     kernel = getattr(be, "lp_kernel", None)
     if kernel is not None:
+        stats["kernel"] = kernel.kernel
         stats["kernel_launches"] = int(kernel.launches)
     return stats
 
@@ -59,7 +71,9 @@ def make_backend(
     ``solver_threads`` mirrors the reference's `-c` knob: it scales the
     number of branch-and-bound nodes each MIP contributes to a device wave.
     ``auto`` routes the knapsack family to kp_bb, the assignment family to
-    ap_bb, and everything else to the wave backend on ``device``."""
+    ap_bb, and everything else to the wave backend on ``device`` — an
+    assignment instance whose objectives are too large for ap_bb's exact
+    matching sums (``ap_bb.blend_safe``) included."""
     if not isinstance(backend, str):
         return backend
     if mesh_devices:
@@ -69,7 +83,7 @@ def make_backend(
         )
     npt = max(8, 8 * max(1, solver_threads))
     if backend == "numpy":
-        from moip_aira_tpu.solver.lex import NumpyLexBackend
+        from moip_aira_tpu_torch.solver.lex import NumpyLexBackend
 
         return NumpyLexBackend(problem)
     if backend == "wave":
@@ -82,20 +96,20 @@ def make_backend(
             "ported yet (ROADMAP.md, queue 1, item 7)"
         )
     if backend == "kpbb":
-        from moip_aira_tpu.solver.kp_bb import KnapsackLexBackend
+        from moip_aira_tpu_torch.solver.kp_bb import KnapsackLexBackend
 
         return KnapsackLexBackend(problem)
     if backend == "apbb":
-        from moip_aira_tpu.solver.ap_bb import APLexBackend
+        from moip_aira_tpu_torch.solver.ap_bb import APLexBackend
 
         return APLexBackend(problem)
     if backend == "auto":
-        from moip_aira_tpu.solver.kp_bb import KnapsackLexBackend, detect_kp_family
+        from moip_aira_tpu_torch.solver.kp_bb import KnapsackLexBackend, detect_kp_family
 
         fam = detect_kp_family(problem)
         if fam is not None:
             return KnapsackLexBackend(problem, fam)
-        from moip_aira_tpu.solver.ap_bb import APLexBackend, detect_ap_family
+        from moip_aira_tpu_torch.solver.ap_bb import APLexBackend, detect_ap_family
 
         afam = detect_ap_family(problem)
         if afam is not None:
@@ -156,7 +170,7 @@ def solve_front(
         and getattr(be, "name", "") == "wave"
     ) or sweep == "on"
     if use_sweep:
-        from moip_aira_tpu.solver.sweep import sweep_front
+        from moip_aira_tpu_torch.solver.sweep import sweep_front
 
         sw = sweep_front(problem, be, batch=getattr(be, "batch_width", 64))
         if sw is not None:

@@ -5,7 +5,7 @@ The flags of ``moip_aira_tpu/cli.py`` (``-p/--lp``, ``-o/--output``,
 ``--split-normal``, ``--backend``, ``--mesh``, ``--dp``, ``--sweep``,
 ``--stats``) plus ``--device {cuda,cpu}``, which says where the wave
 backend's LPs run (default cuda; there is no fallback to the CPU).  The
-``.out`` file is written by the reference's byte-equal writer.
+``.out`` file is written by the byte-equal writer (``io/writer.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import numpy as np
 
 from moip_aira_tpu_torch import __version__
 from moip_aira_tpu_torch.api import solve_front
-from moip_aira_tpu_torch.io import read_problem, write_out
+from moip_aira_tpu_torch.io import read_problem
+from moip_aira_tpu_torch.io.writer import write_out
 
 
 def build_argparser() -> argparse.ArgumentParser:

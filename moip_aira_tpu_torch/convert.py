@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from moip_aira_tpu.problem import Problem
+from moip_aira_tpu_torch.problem import Problem
 
 
 class LPTensors(NamedTuple):

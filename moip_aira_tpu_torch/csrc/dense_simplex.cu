@@ -38,109 +38,11 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libdense_simplex.so dense_simplex.cu
 
-#include <cuda_runtime.h>
-
-#include <climits>
-#include <cmath>
+#include "simplex_common.cuh"
 
 namespace {
 
-constexpr int RUNNING = -1;
-constexpr int OPTIMAL = 0;
-constexpr int INFEASIBLE = 1;
-constexpr int UNBOUNDED = 2;
-constexpr int ITER_LIMIT = 3;
-
-constexpr float BIG = 1e30f;
-constexpr int STALL_LIMIT = 60;
-constexpr float GJ_PIVOT_TOL = 1e-5f;
-constexpr float PIVOT_FLOOR = 1e-12f;
 constexpr int MAX_THREADS = 256;
-constexpr int MAX_WARPS = MAX_THREADS / 32;
-// static __shared__ bytes the kernel declares on top of the dynamic part
-constexpr int STATIC_SMEM_RESERVE = 1024;
-
-struct Scratch {
-  float v[MAX_WARPS];
-  int i[MAX_WARPS];
-};
-
-// (a, ia) beats (b, ib): larger value, lower index among equals
-__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
-  return a > b || (a == b && ia < ib);
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_down_sync(0xffffffffu, v, off);
-    int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (beats(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-// block-wide argmax; every thread returns the winner
-__device__ void block_argmax(float& v, int& i, Scratch* s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  warp_argmax(v, i);
-  __syncthreads();  // the previous reduction's readers are done with s
-  if (lane == 0) {
-    s->v[warp] = v;
-    s->i[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < nw ? s->v[lane] : -INFINITY;
-    i = lane < nw ? s->i[lane] : INT_MAX;
-    warp_argmax(v, i);
-    if (lane == 0) {
-      s->v[0] = v;
-      s->i[0] = i;
-    }
-  }
-  __syncthreads();
-  v = s->v[0];
-  i = s->i[0];
-}
-
-// block-wide minimum (exact in any order); every thread returns it
-__device__ float block_min(float v, Scratch* s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_down_sync(0xffffffffu, v, off));
-  __syncthreads();
-  if (lane == 0) s->v[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < nw ? s->v[lane] : INFINITY;
-    for (int off = 16; off > 0; off >>= 1)
-      v = fminf(v, __shfl_down_sync(0xffffffffu, v, off));
-    if (lane == 0) s->v[0] = v;
-  }
-  __syncthreads();
-  return s->v[0];
-}
-
-// sum of v[0..len) one term at a time in index order, rounded at every
-// step: the order the plain version uses, so the two agree bit for bit
-__device__ float seq_sum(const float* v, int len) {
-  float acc = 0.0f;
-  for (int k = 0; k < len; ++k) acc = __fadd_rn(acc, v[k]);
-  return acc;
-}
-
-// value of nonbasic column j (0 for a basic one)
-__device__ __forceinline__ float nonbasic_value(bool inb, bool at, float lo,
-                                                float hi) {
-  if (inb) return 0.0f;
-  const bool flo = isfinite(lo), fhi = isfinite(hi);
-  if (at && fhi) return hi;
-  return flo ? lo : (fhi ? hi : 0.0f);
-}
 
 // dynamic shared bytes: the tableau (when it lives there) plus the vectors
 size_t vector_bytes(int m, int nc) {
@@ -149,15 +51,6 @@ size_t vector_bytes(int m, int nc) {
 }
 
 size_t tableau_bytes(int m, int nc) { return sizeof(float) * (size_t)m * nc; }
-
-int max_dynamic_smem() {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  return optin - STATIC_SMEM_RESERVE;
-}
 
 template <bool SMEM_T>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -255,6 +148,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
       block_argmax(best, arg, &red);
       const int r = arg / nc, cb = arg - (arg / nc) * nc;
       const float piv = T[arg];
+      // every thread reads the pivot before a thread that gives up resets
+      // T to the cold tableau below
+      __syncthreads();
       if (!(fabsf(piv) > GJ_PIVOT_TOL)) {
         ok = false;
         break;

@@ -1,9 +1,10 @@
 """Build the package's CUDA kernels from the repository's sources.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled by
-``nvcc`` into a shared library under ``<repo>/build/kernels/`` the first time
-it is needed, and loaded with ``ctypes``.  The library's file name carries a
-hash of the source and the flags, so an edited source builds anew.  A failed
+Each kernel is one ``csrc/*.cu`` file with a plain C interface (it may
+include the shared ``csrc/*.cuh`` headers), compiled by ``nvcc`` into a
+shared library under ``<repo>/build/kernels/`` the first time it is needed,
+and loaded with ``ctypes``.  The library's file name carries a hash of the
+source, the headers and the flags, so an edited source builds anew.  A failed
 build raises with nvcc's own error output; nothing falls back."""
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless the library for its hash exists."""
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib

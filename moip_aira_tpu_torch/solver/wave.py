@@ -2,7 +2,8 @@
 
 The port of ``moip_aira_tpu/solver/wave.py`` for its per-LP configuration
 (``fragments=False``).  The LP relaxations run on the device — K1, the CUDA
-dense-tableau kernel (solver/cuda_lp.py) on a GPU, its plain PyTorch version
+dense-tableau kernel, or K2, the CUDA revised-simplex kernel, chosen by the
+LP's shape (solver/cuda_lp.py) on a GPU; their plain PyTorch versions
 (solver/simplex_torch.py) on the CPU — and the branch-and-bound tree search
 runs on the host:
 
@@ -29,17 +30,29 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from moip_aira_tpu.problem import Problem
-from moip_aira_tpu.sense import INF, Sense
-from moip_aira_tpu.solver.lex import LexOutcome, LexRequest, NumpyLexBackend
-from moip_aira_tpu.solver.status import SolveStatus
+from moip_aira_tpu_torch.problem import Problem
+from moip_aira_tpu_torch.sense import INF, Sense
+from moip_aira_tpu_torch.solver.lex import LexOutcome, LexRequest, NumpyLexBackend
+from moip_aira_tpu_torch.solver.status import SolveStatus
 from moip_aira_tpu_torch.convert import lp_tensors
 from moip_aira_tpu_torch.device import resolve_device
 from moip_aira_tpu_torch.solver import simplex_torch as sx
-from moip_aira_tpu_torch.solver.cuda_lp import make_cuda_lp_batch
+from moip_aira_tpu_torch.solver.cuda_lp import make_cuda_lp_batch, make_cuda_rev_batch
 from moip_aira_tpu_torch.solver.verify import LPVerifier
 
 INT_TOL = 1e-6
+#: the reference's shape threshold between its dense and revised kernels
+#: (moip_aira_tpu/solver/wave.py:178-181): LPs of at least this many
+#: columns n + m take the revised simplex
+REVISED_MIN_COLUMNS = 512
+#: pivot caps per LP by engine.  The reference's 2000 bounded a TPU loop
+#: that ran a chunk of lanes in lock step to the cap; on the card each lane
+#: stops on its own, so a higher cap costs only the lanes that need it.
+#: K2's f32 pivots on 2AP40's degenerate assignment LPs pass 2000 often:
+#: at 2000 the front re-solved 333 of its 2,598 LPs on the host, at 6000
+#: 43 of 2,596 (PERF.md)
+MAX_ITERS = {"dense": 2000, "revised": 6000}
+ENGINES = ("auto", "dense", "revised")
 
 
 class _StageTask:
@@ -93,10 +106,16 @@ class _StageTask:
 class WaveLexBackend:
     """Exact lexicographic CLMOIP solves via device LP waves.
 
-    ``device`` is where the LP relaxations run: K1 (solver/cuda_lp.py)
-    launches its kernel on a CUDA device and runs its plain version on the
-    CPU.  ``fragments`` must be False: the whole-subtree fragment path (K3)
-    is not ported yet."""
+    ``engine`` picks the LP kernel as the reference picks its Pallas
+    kernels: ``"dense"`` is K1 (the reference's ``"pallas"``),
+    ``"revised"`` is K2 (``"pallas_rev"``), and ``"auto"`` takes
+    ``"revised"`` when the LP has n + m >= REVISED_MIN_COLUMNS columns.
+    ``lp_max_iters`` caps the pivots of one LP (default: the engine's
+    MAX_ITERS).
+    ``device`` is where the LP relaxations run: the kernel's wrapper
+    (solver/cuda_lp.py) launches it on a CUDA device and runs its plain
+    version on the CPU.  ``fragments`` must be False: the whole-subtree
+    fragment path (K3) is not ported yet."""
 
     name = "wave"
     #: adaptive drivers may stream requests in via lex_solve_batch(feeder=)
@@ -107,11 +126,12 @@ class WaveLexBackend:
         problem: Problem,
         batch_width: int = 256,
         nodes_per_task: int = 8,
-        lp_max_iters: int = 2000,
+        lp_max_iters: Optional[int] = None,
         max_nodes: int = 500000,
         device="cuda",
         warm_start="auto",
         fragments=False,
+        engine="auto",
     ):
         if fragments is not False:
             raise NotImplementedError(
@@ -124,19 +144,29 @@ class WaveLexBackend:
         self.nodes_per_task = nodes_per_task
         self.max_nodes = max_nodes
         self.device = resolve_device(device)
-        # Warm-starting children from parent bases (the kernel's Gauss-Jordan
-        # rebuild) does not pay on the dense tableau: each rebuild step costs
-        # about two pivots over the whole tableau, and m of them exceed a
-        # cold solve's ~2-4m pivots.  'auto' keeps it off, as the reference
-        # does for its dense kernel.
-        self.warm_start = False if warm_start == "auto" else bool(warm_start)
-        self._wave_basis = None
-        self._wave_atup = None
-
+        if engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
         p = problem
         self.k = p.objcnt
         self.n = p.n
         self.m = p.m_total
+        if engine == "auto":
+            wide = self.n + self.m >= REVISED_MIN_COLUMNS
+            engine = "revised" if wide else "dense"
+        self.engine = engine
+        # Warm-starting children from parent bases (the kernels' Gauss-Jordan
+        # rebuild) pays on the revised simplex, whose rebuild works on the
+        # (m, m) basis block, and not on the dense tableau, where each
+        # rebuild step costs about two pivots over the whole tableau and m
+        # of them exceed a cold solve's ~2-4m pivots.  'auto' turns it on
+        # for the revised engine only, as the reference does.
+        if warm_start == "auto":
+            self.warm_start = engine == "revised"
+        else:
+            self.warm_start = bool(warm_start)
+        self._wave_basis = None
+        self._wave_atup = None
+
         self.is_min = p.objsen is Sense.MIN
         # row equilibration: the device sees [diag(s)A | -I] with logical
         # bounds scaled by s at submit; basis indices, at-upper flags and
@@ -145,9 +175,10 @@ class WaveLexBackend:
         lpt = lp_tensors(p, self.device)
         self._A_full = lpt.A_full
         self._row_scale = lpt.row_scale
-        self.lp_kernel = make_cuda_lp_batch(
-            lpt.W_dev, self.device, max_iters=lp_max_iters
-        )
+        make_kernel = make_cuda_rev_batch if engine == "revised" else make_cuda_lp_batch
+        if lp_max_iters is None:
+            lp_max_iters = MAX_ITERS[engine]
+        self.lp_kernel = make_kernel(lpt.W_dev, self.device, max_iters=lp_max_iters)
         self._verifier = LPVerifier(lpt.W_np)
         self._ws = None  # lazy SimplexWorkspace for the exact host LPs
         self.verify_fallbacks = 0
@@ -176,7 +207,7 @@ class WaveLexBackend:
         every stage task — objective-bound rows are always inequalities),
         so one detection serves the whole solve."""
         if not hasattr(self, "_assign_struct_cache"):
-            from moip_aira_tpu.solver.heuristics import detect_assignment
+            from moip_aira_tpu_torch.solver.heuristics import detect_assignment
 
             self._assign_struct_cache = detect_assignment(
                 self._A_full, glo, ghi
@@ -206,7 +237,7 @@ class WaveLexBackend:
             # moves/swaps for inequality structures, 2x2 cycle moves for
             # the assignment family (where any single swap breaks two
             # equality rows).
-            from moip_aira_tpu.solver.heuristics import (
+            from moip_aira_tpu_torch.solver.heuristics import (
                 candidate_value, cycle_improve, repair,
             )
 
@@ -298,15 +329,15 @@ class WaveLexBackend:
 
     def _workspace(self):
         if self._ws is None:
-            from moip_aira_tpu.solver.simplex_np import SimplexWorkspace
+            from moip_aira_tpu_torch.solver.simplex_np import SimplexWorkspace
 
             self._ws = SimplexWorkspace(self._A_full)
         return self._ws
 
     def _host_exact_lp(self, c_struct, lo, hi, warm_basis, warm_at_upper):
         """One exact f64 LP on the host, warm-started from a device basis."""
-        from moip_aira_tpu.solver.simplex_np import solve_lp
-        from moip_aira_tpu.utils.trace import GLOBAL_TIMINGS
+        from moip_aira_tpu_torch.solver.simplex_np import solve_lp
+        from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
 
         ws = self._workspace()
         self.verify_fallbacks += 1
@@ -319,8 +350,8 @@ class WaveLexBackend:
     def _host_exact_lp_batch(self, cS, loS, hiS, wbS=None, waS=None):
         """Batched exact f64 LPs — all of a wave's failed lanes in one
         lockstep vectorised call (solver/simplex_batch.py)."""
-        from moip_aira_tpu.solver.simplex_batch import solve_lp_batch
-        from moip_aira_tpu.utils.trace import GLOBAL_TIMINGS
+        from moip_aira_tpu_torch.solver.simplex_batch import solve_lp_batch
+        from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
 
         ws = self._workspace()
         self.verify_fallbacks += len(cS)
@@ -462,7 +493,7 @@ class WaveLexBackend:
     def _complete_wave(self, submitted, state) -> None:
         """Fetch, certify and branch-process one in-flight wave."""
         wave, nb, c_buf, lo_buf, hi_buf, out = submitted
-        from moip_aira_tpu.utils.trace import GLOBAL_TIMINGS
+        from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
 
         status_t, basis_t, atup_t, done = out
         with GLOBAL_TIMINGS.span("wave.device_lp"):
@@ -601,7 +632,7 @@ class WaveLexBackend:
                     task.best = v
                     task.best_x = cands[i].copy()
                     if task.ls_budget > 0:
-                        from moip_aira_tpu.solver.heuristics import local_search
+                        from moip_aira_tpu_torch.solver.heuristics import local_search
 
                         task.ls_budget -= 1
                         glo = np.concatenate([self.problem.lb, task.llo])
@@ -731,7 +762,7 @@ class WaveLexBackend:
                     )
             if task.failed:
                 # exact host fallback for the whole request
-                from moip_aira_tpu.utils.trace import GLOBAL_TIMINGS
+                from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
 
                 self.frag_stats["req_fallbacks"] = (
                     self.frag_stats.get("req_fallbacks", 0) + 1

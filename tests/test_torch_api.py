@@ -1,5 +1,6 @@
 """The port's front driver and CLI on the CPU: the bundled golden fronts,
-the reference CLI's .out, and a run with jax made unimportable."""
+the reference CLI's .out, a run with jax and the JAX package made
+unimportable, and the port's imports read from its source."""
 
 import ast
 import json
@@ -11,9 +12,9 @@ import numpy as np
 import pytest
 
 from moip_aira_tpu.cli import main as ref_main
-from moip_aira_tpu.io import read_problem
 from moip_aira_tpu_torch.api import solve_front
 from moip_aira_tpu_torch.cli import main as port_main
+from moip_aira_tpu_torch.io import read_problem
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EX = os.path.join(REPO, "examples")
@@ -73,16 +74,28 @@ def test_cli_out_matches_reference_cli(tmp_path):
     assert filtered(ours) == filtered(os.path.join(EX, "G3AP05.out"))
 
 
+#: (instance, backend) the jax-free run solves: the wave on the bound sweep,
+#: and auto, which routes G3AP05 to ap_bb and G3KP10 to kp_bb (both k = 3,
+#: so through the AIRA scheduler)
+NO_JAX_RUNS = (("G2AP05", "wave"), ("G3AP05", "auto"), ("G3KP10", "auto"))
+
+
 def test_port_runs_without_jax():
+    """With ``jax`` and ``moip_aira_tpu`` both unimportable, the port
+    reproduces the goldens on every route it has: the wave backend, the
+    AIRA scheduler, and the ap_bb and kp_bb engines."""
     code = (
-        "import sys\n"
+        "import json, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['moip_aira_tpu'] = None\n"
         "from moip_aira_tpu_torch.api import solve_front\n"
         "from moip_aira_tpu_torch.io import read_problem\n"
-        f"p = read_problem({os.path.join(EX, 'G2AP05.lp')!r})\n"
-        "f = solve_front(p, backend='wave', device='cpu')\n"
-        "import json\n"
-        "print(json.dumps(f.points.tolist()))\n"
+        "out = {}\n"
+        f"for name, backend in {NO_JAX_RUNS!r}:\n"
+        f"    p = read_problem({EX!r} + '/' + name + '.lp')\n"
+        "    f = solve_front(p, backend=backend, device='cpu')\n"
+        "    out[name] = [f.backend_stats['backend'], f.points.tolist()]\n"
+        "print(json.dumps(out))\n"
     )
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -91,8 +104,41 @@ def test_port_runs_without_jax():
         env=env, cwd=REPO, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    got = np.array(json.loads(proc.stdout.strip().splitlines()[-1]))
-    assert (got == bundled_front("G2AP05")).all()
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {k: v[0] for k, v in got.items()} == {
+        "G2AP05": "wave", "G3AP05": "apbb", "G3KP10": "kpbb",
+    }
+    for name, _ in NO_JAX_RUNS:
+        assert (np.array(got[name][1]) == bundled_front(name)).all(), name
+
+
+def imported_modules(path):
+    """Every module an ``import`` or ``from`` statement in ``path`` names."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """No file of the port, and not chip_smoke.py, imports moip_aira_tpu or
+    a module under it: the port owns copies of what it runs."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, "moip_aira_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    for path in files:
+        bad = sorted(
+            n for n in imported_modules(path)
+            if n == "moip_aira_tpu" or n.startswith("moip_aira_tpu.")
+            or n in ("jax", "jaxlib") or n.startswith("jax.")
+        )
+        assert not bad, (os.path.relpath(path, REPO), bad)
 
 
 def test_unported_paths_raise(tmp_path):
@@ -112,14 +158,7 @@ def test_unported_paths_raise(tmp_path):
 def test_chip_smoke_imports_only_the_port():
     """The smoke drives the port alone: no import of jax or of the JAX
     package, only torch, the standard library and moip_aira_tpu_torch."""
-    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
-        tree = ast.parse(fh.read())
-    names = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            names.add(node.module)
+    names = imported_modules(os.path.join(REPO, "chip_smoke.py"))
     tops = {n.split(".")[0] for n in names}
     assert "moip_aira_tpu_torch" in tops and "torch" in tops
     assert not tops & {"jax", "jaxlib", "moip_aira_tpu"}, sorted(names)

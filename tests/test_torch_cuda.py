@@ -1,4 +1,5 @@
-"""K1, the CUDA kernel, against its plain PyTorch version on the card.
+"""K1 and K2, the CUDA kernels, against their plain PyTorch versions on
+the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no jax, so on a machine with a card and without jax it runs alone:
@@ -12,11 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from moip_aira_tpu.io import read_problem
-from moip_aira_tpu.sense import Sense
 from moip_aira_tpu_torch.convert import lp_tensors
+from moip_aira_tpu_torch.io import read_problem
 from moip_aira_tpu_torch.solver import simplex_torch as st
-from moip_aira_tpu_torch.solver.cuda_lp import make_cuda_lp_batch
+from moip_aira_tpu_torch.sense import Sense
+from moip_aira_tpu_torch.solver.cuda_lp import make_cuda_lp_batch, make_cuda_rev_batch
 
 EX = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
 B = 16
@@ -99,3 +100,48 @@ def test_kernel_refuses_tensors_on_another_device(cuda_device):
     with pytest.raises(ValueError):
         k1(*(a.cpu() for a in args), wb, wa)
     assert k1.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name",
+    # 2AP40 (82 x 1682) keeps B^-1 and the warm block in shared memory;
+    # 2AP100 (202 x 10202) only B^-1, its warm block in the global scratch
+    ["G2AP05.lp", "2AP40.lp", "2AP100.lp"],
+)
+def test_revised_kernel_matches_plain_bit_for_bit(cuda_device, name):
+    """K2 and its plain version sum in the same order, so on the same CUDA
+    inputs they agree exactly, warm lanes and a singular warm basis (which
+    falls back to the cold start) included."""
+    dev = cuda_device
+    t, args = lanes(name, dev, seed=5)
+    k2 = make_cuda_rev_batch(t.W_dev, dev)
+    m, nc = t.W_dev.shape
+    wb = torch.full((B, m), -1, dtype=torch.int32, device=dev)
+    wa = torch.zeros((B, nc), dtype=torch.int32, device=dev)
+    first = k2(*args, wb, wa)
+    wb_w = first.basis.clone()
+    wa_w = first.at_upper.clone()
+    wb_w[1::2] = -1
+    wa_w[1::2] = 0
+    wb_w[2] = int(torch.nonzero(t.W_dev[0] == 0)[0])  # one column m times
+    for wbx, wax in ((wb, wa), (wb_w, wa_w)):
+        out = k2(*args, wbx, wax)
+        ref = st.revised_lp_batch_ref(k2.W, *args, wbx, wax)
+        torch.cuda.synchronize()
+        for f in out._fields:
+            assert torch.equal(getattr(out, f), getattr(ref, f)), f
+    assert (first.status == st.OPTIMAL).any()
+    assert k2.launches == 3
+
+
+@pytest.mark.cuda
+def test_revised_kernel_refuses_tensors_on_another_device(cuda_device):
+    t, args = lanes("G2AP05.lp", cuda_device, seed=0)
+    k2 = make_cuda_rev_batch(t.W_dev, cuda_device)
+    m, nc = t.W_dev.shape
+    wb = torch.full((B, m), -1, dtype=torch.int32)
+    wa = torch.zeros((B, nc), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        k2(*(a.cpu() for a in args), wb, wa)
+    assert k2.launches == 0

@@ -1,7 +1,7 @@
-"""The port's wave backend (device="cpu": the plain K1) against the
-reference wave backend with the Pallas kernel in interpret mode and with
-the XLA twin, on grids of lexicographic requests: every request's status,
-objective vector and IP count must be exactly equal."""
+"""The port's wave backend (device="cpu": the plain versions of K1 and K2)
+against the reference wave backend with its Pallas kernels in interpret
+mode and with the XLA twin, on grids of lexicographic requests: every
+request's status, objective vector and IP count must be exactly equal."""
 
 import os
 
@@ -9,10 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from moip_aira_tpu.io import read_problem
-from moip_aira_tpu.solver.lex import LexRequest
+from moip_aira_tpu.io import read_problem as ref_read_problem
 from moip_aira_tpu.solver.wave import WaveLexBackend as RefWave
-from moip_aira_tpu_torch.solver.cuda_lp import CudaLPBatch
+from moip_aira_tpu_torch.io import read_problem
+from moip_aira_tpu_torch.solver.cuda_lp import CudaLPBatch, CudaRevBatch
+from moip_aira_tpu_torch.solver.lex import LexRequest
 from moip_aira_tpu_torch.solver.wave import WaveLexBackend
 
 EX = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
@@ -52,13 +53,25 @@ def outcomes(be, reqs):
     ]
 
 
+#: the port's engine held against each reference engine: its shape choice
+#: ("auto", which is K1 at these widths) against the dense Pallas kernel and
+#: the XLA twin, and K2 against the revised Pallas kernel, both warm
+PORT_ENGINE = {"pallas": "auto", "xla": "auto", "pallas_rev": "revised"}
+
+
 @pytest.mark.parametrize("name", ["G2AP05", "G3KP10"])
-@pytest.mark.parametrize("ref_engine", ["pallas", "xla"])
+@pytest.mark.parametrize("ref_engine", ["pallas", "xla", "pallas_rev"])
 def test_lex_outcomes_match_reference(name, ref_engine):
-    p = read_problem(os.path.join(EX, f"{name}.lp"))
+    path = os.path.join(EX, f"{name}.lp")
     reqs = GRIDS[name]()
-    port = WaveLexBackend(p, device="cpu", batch_width=64)
-    ref = RefWave(p, engine=ref_engine, fragments=False, batch_width=64)
+    port = WaveLexBackend(
+        read_problem(path), device="cpu", batch_width=64,
+        engine=PORT_ENGINE[ref_engine],
+    )
+    ref = RefWave(
+        ref_read_problem(path), engine=ref_engine, fragments=False, batch_width=64
+    )
+    assert port.warm_start == ref.warm_start == (ref_engine == "pallas_rev")
     got = outcomes(port, reqs)
     want = outcomes(ref, reqs)
     assert got == want
@@ -93,11 +106,13 @@ def test_feeder_streams_requests():
 
 
 def test_engine_and_fragments_choices():
-    """One LP engine, K1, chosen by nothing but the device: on the CPU its
+    """The LP engine is chosen by the LP's shape and nothing else; the
+    device alone picks the kernel or its plain version: on the CPU the
     wrapper runs the plain version and counts no launch."""
     p = read_problem(os.path.join(EX, "G2AP05.lp"))
     be = WaveLexBackend(p, device="cpu")
-    assert isinstance(be.lp_kernel, CudaLPBatch)
+    assert be.engine == "dense" and type(be.lp_kernel) is CudaLPBatch
+    assert not be.warm_start
     assert be.lp_kernel.device == torch.device("cpu")
     assert be.name == "wave" and be.supports_feeder and be.batch_width == 256
     be.lex_solve_batch(g2ap05_grid()[:2])
@@ -105,5 +120,23 @@ def test_engine_and_fragments_choices():
     for frag in (True, "auto"):
         with pytest.raises(NotImplementedError, match="K3"):
             WaveLexBackend(p, device="cpu", fragments=frag)
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="engine"):
         WaveLexBackend(p, device="cpu", engine="torch")
+
+
+@pytest.mark.parametrize(
+    "name,engine,kernel",
+    [("2AP20", "dense", CudaLPBatch), ("2AP40", "revised", CudaRevBatch)],
+)
+def test_auto_engine_follows_the_reference_threshold(name, engine, kernel):
+    """n + m >= 512 takes K2 with warm starts (2AP40: 1,600 + 82 columns),
+    below it K1 cold (2AP20: 400 + 42), as the reference's wave chooses
+    between its Pallas kernels.  Built only, not solved."""
+    p = read_problem(os.path.join(EX, f"{name}.lp"))
+    be = WaveLexBackend(p, device="cpu")
+    assert (p.n + p.m_total >= 512) == (engine == "revised")
+    assert be.engine == engine and type(be.lp_kernel) is kernel
+    assert be.warm_start == (engine == "revised")
+    # K2's pivots stop on their own per lane, so it gets the higher cap
+    assert be.lp_kernel.max_iters == {"dense": 2000, "revised": 6000}[engine]
+    assert WaveLexBackend(p, device="cpu", warm_start=False).warm_start is False
