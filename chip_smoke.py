@@ -3,13 +3,15 @@
 
 Drives the port's main path on the card — read_problem -> solve_front ->
 bound sweep (k=2) or AIRA scheduler (k>=3) -> WaveLexBackend -> the
-hand-written CUDA simplex kernels, K1 (dense tableau, LPs of n + m < 512
-columns) and K2 (revised simplex, wider LPs) -> f64 certification -> host
-branch and bound — and fails unless every phase passes:
+hand-written CUDA kernels, K1 (dense tableau, LPs of n + m < 512 columns)
+and K2 (revised simplex, wider LPs) on the per-LP path, K3 (B&B fragments,
+a subtree per lane) on the fragment path -> f64 certification and audit ->
+host branch and bound — and fails unless every phase passes:
 
 1. probe:     the card (nvidia-smi), torch, CUDA and nvcc versions;
-2. build:     K1 (csrc/dense_simplex.cu) and K2 (csrc/revised_simplex.cu),
-              one nvcc each, started together, each timed;
+2. build:     K1 (csrc/dense_simplex.cu), K2 (csrc/revised_simplex.cu) and
+              K3 (csrc/bb_fragment.cu), one nvcc each, started together,
+              each timed;
 3. kernels:   K1 against its plain PyTorch version on the card, at 2AP20's
               and G2AP05's LP shapes with 256 lanes (cold and half-warm):
               raw outputs equal bit for bit on every lane, then certified
@@ -32,7 +34,22 @@ branch and bound — and fails unless every phase passes:
 8. wide:      the full 2AP40 front (n=1600, m=82) through solve_front with
               the engine left to the backend (K2, warm starts on), held
               against its golden: K2 launched once per device wave, K1
-              never, the same bound on re-solves.
+              never, the same bound on re-solves;
+9. fragment:  K3 against its plain version on the card at G3KP10's shape
+              (256 lanes, F=32), 2AP20's (256 lanes, F=32, cold and half
+              warm from the first launch's final bases) and 2AP40's (64
+              lanes, F=8, 2000 ticks): every raw output of every lane equal
+              bit for bit;
+10. frag:     the full 2AP20 front through solve_front on the fragment path
+              (WaveLexBackend(fragments=True), the backend's default
+              widths), held against its golden: K3 launched once per device
+              wave, K1 and K2 never, at most MAX_HOST_REC_SHARE of the
+              logged records sent to exact host LPs, and no request handed
+              whole to the exact host path;
+11. frag3:    G3AP05 (k=3, the scheduler ladder) on the fragment path and
+              G3KP10 with frag_nodes=2 (budget stops, re-opened siblings),
+              held the same way;
+12. frag-wide: the full 2AP40 front on the fragment path, held the same way.
 
 Each phase prints one JSON line.  The last two lines are the kernel table
 ({"kernels": [...]}) and {"ok": true, "device": {...}}.  Any failure raises
@@ -60,7 +77,20 @@ KERNEL_SHAPES = ("2AP20", "G2AP05")
 #: K2's shapes: (instance, lanes, starts)
 REVISED_SHAPES = (("2AP40", 256, ("cold", "warm")), ("2AP100", 64, ("cold",)))
 CROSSOVER_SHAPES = ("2AP20", "2AP40")
-KERNELS = ("dense_simplex", "revised_simplex")
+KERNELS = ("dense_simplex", "revised_simplex", "bb_fragment")
+#: K3's shapes: (instance, lanes, F, max_ticks, starts)
+FRAGMENT_SHAPES = (
+    ("G3KP10", 256, 32, 8192, ("cold",)),
+    ("2AP20", 256, 32, 8192, ("cold", "warm")),
+    ("2AP40", 64, 8, 2000, ("cold",)),
+)
+#: at most this share of a fragment front's logged records may fail the
+#: audit and go to exact host LPs: the fragment path's counterpart of
+#: MAX_FALLBACK_SHARE (a kernel whose claims do not certify shows there).
+#: Twice the share the first H100 run measured on each front (PERF.md):
+#: 79 of 10,060 records on 2AP20, 1 of 391 on G3AP05, 3 of 17,208 on
+#: G3KP10 with frag_nodes=2, 3,166 of 54,170 on 2AP40
+MAX_HOST_REC_SHARE = {"2AP20": 0.0158, "G3AP05": 0.0052, "G3KP10": 0.00035, "2AP40": 0.117}
 LANES = 256
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes per second and float32 operations per second outside the tensor
@@ -131,30 +161,48 @@ def check_fallbacks(name, fallbacks, lps):
         )
 
 
-def bound(kernel, m, n, iters, warm_lanes):
+def bound(kernel, m, n, iters, warm_lanes, nlog=None):
     """The least time the card could take for one launch of ``kernel`` on
     these lanes, in ms, and what sets it ("bytes" or "operations").
 
     Bytes: W and each lane's inputs (c, lo, hi, wb, wa) read once, its
-    outputs (status, obj, x, basis, at_upper, iters) written once.
+    outputs (status, obj, x, basis, at_upper, iters) written once; for K3
+    the inputs add par, the outputs are best, bestx, four counters, the
+    final basis and packed flags, and the logged records only (``nlog`` of
+    them a lane, 8 scalars, the basis and ceil(nc / 32) flag words each).
     Operations, in float32 at 2 per multiply-add, from this run's pivot
-    counts ``iters`` (bound flips counted as pivots) and warm lanes: both
-    kernels start with the basic solution (2 m nc); each K1 iteration
+    counts ``iters`` (bound flips counted as pivots) and warm lanes: the
+    LP kernels start with the basic solution (2 m nc); each K1 iteration
     prices and updates the m x nc tableau (4 m nc) and a warm K1 lane
     rebuilds it in m steps (2 m^2 nc); each K2 iteration prices against W
     and computes y, alpha and the B^-1 update (2 (m nc + 3 m^2)) and a warm
-    K2 lane rebuilds [P1 | -I] in m steps (4 m^3)."""
+    K2 lane rebuilds [P1 | -I] in m steps (4 m^3).  K3's pivots are K2's,
+    its warm roots K2's rebuild, and each of its logged nodes restarts
+    with the basic solution (2 (m nc + m^2)) and closes with the
+    objective (2 (m + nc))."""
     import numpy as np
 
     nc = n + m
     B = len(iters)
-    nbytes = 4 * (m * nc + B * (4 * nc + m) + B * (3 + n + m + nc))
     pivots = float(np.sum(iters))
-    if kernel == "dense_simplex":
-        ops = pivots * 4 * m * nc + warm_lanes * 2 * m * m * nc
+    if kernel == "bb_fragment":
+        nodes = float(np.sum(nlog))
+        pw = -(-nc // 32)
+        nbytes = 4 * (
+            m * nc + B * (5 * nc + m + 4) + B * (5 + nc + m + pw)
+            + nodes * (8 + m + pw)
+        )
+        ops = (
+            pivots * 2 * (m * nc + 3 * m * m) + warm_lanes * 4 * m**3
+            + nodes * 2 * (m * nc + m * m + m + nc)
+        )
     else:
-        ops = pivots * 2 * (m * nc + 3 * m * m) + warm_lanes * 4 * m**3
-    ops += B * 2 * m * nc
+        nbytes = 4 * (m * nc + B * (4 * nc + m) + B * (3 + n + m + nc))
+        if kernel == "dense_simplex":
+            ops = pivots * 4 * m * nc + warm_lanes * 2 * m * m * nc
+        else:
+            ops = pivots * 2 * (m * nc + 3 * m * m) + warm_lanes * 4 * m**3
+        ops += B * 2 * m * nc
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_F32_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -244,7 +292,7 @@ def phase_probe():
 
 
 def phase_build():
-    """Both kernels built at once, one nvcc each."""
+    """All kernels built at once, one nvcc each."""
     from moip_aira_tpu_torch.kernels.build import build, load
 
     def timed(name):
@@ -484,6 +532,129 @@ def phase_revised(seed):
     return rows
 
 
+def fragment_par(problem, c, lo, hi, front, F):
+    """par (lanes, 4) for K3's lanes: the incumbent is +inf on the even
+    lanes and, on the odd ones, the stage value of the worst golden front
+    point inside the lane's objective box (a feasible value; +inf when no
+    point is inside); integral objectives; a budget of F; all active."""
+    import numpy as np
+
+    from moip_aira_tpu_torch import Sense
+
+    p = problem
+    n, k = p.n, p.objcnt
+    is_min = p.objsen is Sense.MIN
+    sign = 1.0 if is_min else -1.0
+    lanes = c.shape[0]
+    par = np.zeros((lanes, 4), np.float32)
+    par[:, 0] = np.inf
+    par[:, 1:] = [1.0, F, 1.0]
+    box = hi[:, -k:] if is_min else lo[:, -k:]
+    for b in range(1, lanes, 2):
+        j = next(jj for jj in range(k) if np.array_equal(c[b, :n], sign * p.C[jj]))
+        inside = (front <= box[b]).all(1) if is_min else (front >= box[b]).all(1)
+        if inside.any():
+            par[b, 0] = (sign * front[inside, j]).max()
+    return par
+
+
+def phase_fragment(seed):
+    """K3 against fragment_batch_ref on the same CUDA inputs: fragment roots
+    made from the golden front's requests, at the shapes the fragment fronts
+    give it."""
+    import numpy as np
+    import torch
+
+    from moip_aira_tpu_torch.convert import lp_tensors
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.solver.bb_torch import (
+        F_ACTION, FragmentOutcome, LS_BUDGET, LS_TICKS, fragment_batch_ref,
+    )
+    from moip_aira_tpu_torch.solver.cuda_bb import make_cuda_bb_batch
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed + 3)
+    actions = ("branch", "prune", "infeasible", "leaf", "iterlim")
+    rows = []
+    for name, lanes, F, max_ticks, starts in FRAGMENT_SHAPES:
+        p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+        t = lp_tensors(p, dev)
+        n, m = p.n, p.m_total
+        (ct, lot, hit), (c, lo, hi) = scaled_lanes(p, t.row_scale, rng, name, lanes, dev)
+        par = torch.as_tensor(
+            fragment_par(p, c, lo, hi, golden_front(name), F), device=dev
+        )
+        node_iters = max(200, 6 * m)  # the wave's per-node cap
+        fn, meta = make_cuda_bb_batch(
+            t.W_dev, p.is_int, dev, F=F, D=128, node_iters=node_iters,
+            max_ticks=max_ticks,
+        )
+        wb_cold, wa_cold = cold_start(lanes, m, n + m, dev)
+        first = fn(ct, lot, hit, par, wb_cold, wa_cold)
+        # half the lanes warm from the bases the first launch stopped with
+        even = (torch.arange(lanes, device=dev) % 2 == 0)[:, None]
+        fin_wa = torch.as_tensor(
+            meta["unpack_atup1"](first["fin_atup"].cpu().numpy()), dtype=torch.int32,
+            device=dev,
+        )
+        starts_wb = {
+            "cold": (wb_cold, wa_cold),
+            "warm": (
+                torch.where(even, first["fin_basis"], -1).contiguous(),
+                torch.where(even, fin_wa, 0).contiguous(),
+            ),
+        }
+        for label in starts:
+            wb, wa = starts_wb[label]
+            out_k = fn(ct, lot, hit, par, wb, wa)
+            out_p, plain_ms = events_ms(
+                lambda: fragment_batch_ref(
+                    fn.W, p.is_int, ct, lot, hit, par, wb, wa, F=F, D=128,
+                    node_iters=node_iters, max_ticks=max_ticks,
+                )
+            )
+            raw = FragmentOutcome(**{f: out_k[f] for f in FragmentOutcome._fields})
+            assert_bitwise(f"K3 {name} {label}", raw, out_p)
+            ms = cuda_ms(lambda: fn._launch(ct, lot, hit, par, wb, wa))
+            nlog = raw.nlog.cpu().numpy()
+            iters = raw.iters.cpu().numpy()
+            acts = np.concatenate(
+                [raw.lg_scal[b, : min(k, F), F_ACTION].cpu().numpy() for b, k in enumerate(nlog)]
+            ).astype(int)
+            lstate = raw.lstate.cpu().numpy()
+            bound_ms, bound_by = bound(
+                "bb_fragment", m, n, iters, int((wb[:, 0] >= 0).sum()), nlog
+            )
+            row = {
+                "phase": "fragment",
+                "kernel": "bb_fragment",
+                "instance": name,
+                "start": label,
+                "m": m,
+                "nc": n + m,
+                "lanes": lanes,
+                "F": F,
+                "max_ticks": max_ticks,
+                "records": int(nlog.sum()),
+                "records_by_action": {
+                    a: int((acts == i).sum()) for i, a in enumerate(actions)
+                },
+                "budget_stops": int((lstate == LS_BUDGET).sum()),
+                "tick_stops": int((lstate == LS_TICKS).sum()),
+                "max_ticks_used": int(raw.ticks.max()),
+                "mean_iters": float(iters.mean()),
+                "bitwise_equal": True,
+                "max_abs_err": 0.0,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            emit(row)
+            rows.append(row)
+    return rows
+
+
 def phase_crossover(seed):
     """K1 and K2 on the same cold lanes, where the reference's threshold
     (n + m >= 512) switches between them: both times, and the same
@@ -669,6 +840,89 @@ def phase_front(phase, name, kernel):
     return row
 
 
+def phase_frag_front(phase, name, workers, **kw):
+    """The full front of ``name`` on the fragment path, in this process:
+    K3 must serve every device wave and the LP kernels none, at most
+    MAX_HOST_REC_SHARE[name] of the logged records may go to exact host
+    LPs, and no request may fall back whole to the host."""
+    import numpy as np
+    import torch
+
+    from moip_aira_tpu_torch.api import solve_front
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
+    from moip_aira_tpu_torch.solver.wave import WaveLexBackend
+    from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
+
+    p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+    be = WaveLexBackend(p, device="cuda", fragments=True, **kw)
+    spans0 = dict(GLOBAL_TIMINGS.totals)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    front = solve_front(p, n_workers=workers, backend=be, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    spans = {
+        k: v - spans0.get(k, 0.0)
+        for k, v in GLOBAL_TIMINGS.totals.items()
+        if v - spans0.get(k, 0.0) > 0.0
+    }
+    if not np.array_equal(front.points, golden_front(name)):
+        raise AssertionError(f"{name} ({phase}): the front differs from the golden")
+    others = {k: v for k, v in launches.items() if k != "bb_fragment"}
+    if not (
+        launches["bb_fragment"] > 0
+        and launches["bb_fragment"] == be.device_waves
+        and not any(others.values())
+    ):
+        raise AssertionError(
+            f"{name} ({phase}): launches {launches} over {be.device_waves} "
+            f"device waves (want bb_fragment on each, no other kernel)"
+        )
+    fs = be.frag_stats
+    limit = MAX_HOST_REC_SHARE[name]
+    if fs["host_recs"] > limit * fs["records"]:
+        raise AssertionError(
+            f"{name} ({phase}): {fs['host_recs']} of {fs['records']} records "
+            f"went to exact host LPs (limit {limit:.2%})"
+        )
+    if fs.get("req_fallbacks", 0):
+        raise AssertionError(
+            f"{name} ({phase}): {fs['req_fallbacks']} requests fell back whole "
+            f"to the exact host path"
+        )
+    row = {
+        "phase": phase,
+        "instance": name,
+        "frag_nodes": be._frag_F,
+        "batch_width": be.batch_width,
+        "seconds": seconds,
+        "points": int(front.points.shape[0]),
+        "ips": int(front.ip_count),
+        "waves": be.device_waves,
+        "launches": launches["bb_fragment"],
+        "records": fs["records"],
+        "host_recs": fs["host_recs"],
+        "host_rec_share": fs["host_recs"] / max(1, fs["records"]),
+        "reopened": fs["reopened"],
+        "ticks": fs["ticks"],
+        "dev_iters": fs["dev_iters"],
+        "ticked_out": fs["ticked_out"],
+        "why": fs["why"],
+        "court": fs.get("court"),
+        "host_pruned": fs.get("host_pruned", 0),
+        "rescue_lps": fs.get("rescue_lps", 0),
+        "req_fallbacks": fs.get("req_fallbacks", 0),
+        "verify_fallbacks": be.verify_fallbacks,
+        "host_spans_seconds": spans,
+        "golden": True,
+    }
+    emit(row)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -690,10 +944,15 @@ def main() -> int:
     phase_build()
     k1_rows = phase_kernels(args.seed)
     k2_rows = phase_revised(args.seed)
+    k3_rows = phase_fragment(args.seed)
     phase_crossover(args.seed)
     phase_cli()
     real = phase_front("real", "2AP20", "dense_simplex")
     wide = phase_front("wide", "2AP40", "revised_simplex")
+    frag = phase_frag_front("frag", "2AP20", 1)
+    phase_frag_front("frag3", "G3AP05", 2)
+    phase_frag_front("frag3", "G3KP10", 1, frag_nodes=2)
+    phase_frag_front("frag-wide", "2AP40", 1)
     if "jax" in sys.modules or "moip_aira_tpu" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -701,6 +960,7 @@ def main() -> int:
         row = next(
             r for r in rows if r["instance"] == shape and r["start"] == "cold"
         )
+        # no single PyTorch call computes a batched simplex or a B&B subtree
         return {
             "name": name,
             "route": "cuda",
@@ -712,7 +972,6 @@ def main() -> int:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
-            # no single PyTorch call computes a batched simplex
             "library_ms": None,
         }
 
@@ -722,6 +981,8 @@ def main() -> int:
                   k1_rows, real, "2AP20"),
             entry("revised_simplex", "moip_aira_tpu/solver/pallas_rev.py:102",
                   k2_rows, wide, "2AP40"),
+            entry("bb_fragment", "moip_aira_tpu/solver/pallas_bb.py:211",
+                  k3_rows, frag, "2AP20"),
         ]
     })
     emit({

@@ -36,8 +36,9 @@ class FrontResult:
     rounds: int = 0
     batch_sizes: Optional[List[int]] = None
     #: counters of the backend that computed the front: the wave backend's
-    #: device_waves, lp_count, verify_fallbacks, and the name and
-    #: kernel_launches of its LP kernel
+    #: device_waves, lp_count, verify_fallbacks, the name and
+    #: kernel_launches of the kernel that served its device waves (the LP
+    #: kernel, or K3 on the fragment path, which adds its frag_stats)
     backend_stats: Optional[dict] = None
 
     @property
@@ -52,6 +53,12 @@ def backend_stats(be) -> dict:
         if hasattr(be, key):
             stats[key] = int(getattr(be, key))
     kernel = getattr(be, "lp_kernel", None)
+    if getattr(be, "fragments", False):
+        kernel = be.frag_kernel
+        fs = be.frag_stats
+        stats["fragments"] = {
+            k: fs[k] for k in ("records", "host_recs", "reopened", "waves", "ticks")
+        }
     if kernel is not None:
         stats["kernel"] = kernel.kernel
         stats["kernel_launches"] = int(kernel.launches)
@@ -79,7 +86,7 @@ def make_backend(
     if mesh_devices:
         raise NotImplementedError(
             "mesh_devices: the multi-device mesh is not ported yet "
-            "(ROADMAP.md, queue 1, item 8)"
+            "(ROADMAP.md, queue 1, item 4)"
         )
     npt = max(8, 8 * max(1, solver_threads))
     if backend == "numpy":
@@ -93,7 +100,7 @@ def make_backend(
     if backend == "jax":
         raise NotImplementedError(
             "backend 'jax': the monolithic device backend (lex_jax) is not "
-            "ported yet (ROADMAP.md, queue 1, item 7)"
+            "ported yet (ROADMAP.md, queue 1, item 3)"
         )
     if backend == "kpbb":
         from moip_aira_tpu_torch.solver.kp_bb import KnapsackLexBackend

@@ -151,7 +151,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
       // every thread reads the pivot before a thread that gives up resets
       // T to the cold tableau below
       __syncthreads();
-      if (!(fabsf(piv) > GJ_PIVOT_TOL)) {
+      // the largest remaining score decides (as in revised_simplex.cu): when
+      // it is 0 the arg-max lands on entry (0, 0), which may be an assigned
+      // row's, and the basis is singular
+      if (!(best > GJ_PIVOT_TOL)) {
         ok = false;
         break;
       }

@@ -44,11 +44,14 @@
 // for bit.  Tensor-core pricing across lanes, several lanes per block and
 // TMA are not used yet.
 //
+// The rebuild, the basic solution and the pivot's sub-steps live in
+// revised_core.cuh, which K3 (bb_fragment.cu) runs in every B&B node.
+//
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o librevised_simplex.so revised_simplex.cu
 
-#include "simplex_common.cuh"
+#include "revised_core.cuh"
 
 namespace {
 
@@ -151,74 +154,19 @@ __global__ void __launch_bounds__(MAX_THREADS)
   bp += m;
   unsigned char* remaining = bp;  // rebuild: basis entries not yet placed
 
+  const RevLane L{m,  n,   nc,    W,     c,      lo, hi,    BI,
+                  xB, bl,  bh,    cB,    cB1,    y,  alpha, ratio,
+                  rowdiv, wq, basis, hits_up, inb, atup, &red};
+
   for (int e = tid; e < mm; e += nt) {
     const int i = e / m;
     BI[e] = (e - i * m) == i ? -1.0f : 0.0f;
   }
   for (int i = tid; i < m; i += nt) basis[i] = n + i;
-  const bool warm = wb[0] >= 0;
 
   // ---- warm start: Gauss-Jordan on [P1 | -I] ----------------------------
   bool use_warm = false;
-  if (warm) {
-    for (int e = tid; e < mm; e += nt) {
-      const int j = e / m, t = e - (e / m) * m;
-      const int w = wb[t];
-      P1[e] = (w >= 0 && w < nc) ? W[(size_t)j * nc + w] : 0.0f;
-    }
-    for (int i = tid; i < m; i += nt) {
-      unassigned[i] = 1;
-      remaining[i] = 1;
-    }
-    __syncthreads();
-    bool ok = true;
-    for (int step = 0; step < m; ++step) {
-      float best = -INFINITY;
-      int arg = INT_MAX;
-      for (int e = tid; e < mm; e += nt) {
-        const int i = e / m, t = e - (e / m) * m;
-        const float s = (unassigned[i] && remaining[t]) ? fabsf(P1[e]) : 0.0f;
-        if (beats(s, e, best, arg)) {
-          best = s;
-          arg = e;
-        }
-      }
-      block_argmax(best, arg, &red);
-      if (!(best > GJ_PIVOT_TOL)) {
-        ok = false;
-        break;
-      }
-      const int r = arg / m, tb = arg - (arg / m) * m;
-      const float piv = P1[arg];
-      for (int i = tid; i < m; i += nt) {
-        alpha[i] = P1[i * m + tb];
-        wq[i] = P1[r * m + i] / piv;
-        rowdiv[i] = BI[r * m + i] / piv;
-      }
-      __syncthreads();
-      for (int e = tid; e < mm; e += nt) {
-        const int i = e / m, j = e - (e / m) * m;
-        const float cv = i == r ? piv - 1.0f : alpha[i];
-        P1[e] = __fsub_rn(P1[e], __fmul_rn(cv, wq[j]));
-        BI[e] = __fsub_rn(BI[e], __fmul_rn(cv, rowdiv[j]));
-      }
-      __syncthreads();
-      if (tid == 0) {
-        basis[r] = wb[tb];
-        unassigned[r] = 0;
-        remaining[tb] = 0;
-      }
-      __syncthreads();
-    }
-    use_warm = ok;
-    // [I | -B^-1] gives B^-1; a singular basis starts cold (B = -I)
-    for (int e = tid; e < mm; e += nt) {
-      const int i = e / m;
-      BI[e] = ok ? -BI[e] : ((e - i * m) == i ? -1.0f : 0.0f);
-    }
-    if (!ok)
-      for (int i = tid; i < m; i += nt) basis[i] = n + i;
-  }
+  if (wb[0] >= 0) use_warm = rev_warm_rebuild(L, wb, P1, unassigned, remaining);
   __syncthreads();
 
   // ---- basis bookkeeping and the basic solution --------------------------
@@ -247,19 +195,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     cB[i] = c[col];
   }
   empty = __syncthreads_or(empty);
-  for (int j = tid; j < m; j += nt) {  // y = W z_N
-    float acc = 0.0f;
-    for (int k = 0; k < nc; ++k)
-      acc = __fadd_rn(acc, __fmul_rn(W[(size_t)j * nc + k], z[k]));
-    y[j] = acc;
-  }
-  __syncthreads();
-  for (int i = tid; i < m; i += nt) {  // xB = -B^-1 (W z_N)
-    float acc = 0.0f;
-    for (int k = 0; k < m; ++k)
-      acc = __fadd_rn(acc, __fmul_rn(BI[i * m + k], y[k]));
-    xB[i] = -acc;
-  }
+  rev_basic_solution(L, z);
   if (tid == 0) {
     s_status = empty ? INFEASIBLE : RUNNING;
     s_stall = 0;
@@ -270,176 +206,16 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
   // ---- pivot loop --------------------------------------------------------
   for (int it = 0; it < max_iters && s_status == RUNNING; ++it) {
-    // phase-1 infeasibility of the basic solution (ratio[] holds each
-    // row's share until the ratio test overwrites it)
-    for (int i = tid; i < m; i += nt) {
-      const float x = xB[i], l = bl[i], h = bh[i];
-      const bool below = x < l - feas_tol, above = x > h + feas_tol;
-      ratio[i] = __fadd_rn(below ? l - x : 0.0f, above ? x - h : 0.0f);
-      cB1[i] = below ? -1.0f : (above ? 1.0f : 0.0f);
-    }
-    __syncthreads();
-    if (tid == 0) s_sum = seq_sum(ratio, m);
-    __syncthreads();
-    const float infeas_sum = s_sum;
+    const float infeas_sum = rev_infeasibility(L, feas_tol, &s_sum);
     const bool phase1 = infeas_sum > feas_tol;
-    const bool bland = s_stall >= STALL_LIMIT;
-    const float* cBe = phase1 ? cB1 : cB;
-
-    // y = cB_eff^T B^-1: one column of B^-1 per thread
-    for (int j = tid; j < m; j += nt) {
-      float acc = 0.0f;
-      for (int i = 0; i < m; ++i)
-        acc = __fadd_rn(acc, __fmul_rn(cBe[i], BI[i * m + j]));
-      y[j] = acc;
-    }
-    __syncthreads();
-
-    // pricing d = c - y W: one column of W per thread
-    float best = -INFINITY, best_d = 0.0f;
-    int q = INT_MAX;
-    bool any = false;
-    for (int j = tid; j < nc; j += nt) {
-      float acc = 0.0f;
-      for (int k = 0; k < m; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(y[k], W[(size_t)k * nc + j]));
-      float dj = -acc;
-      if (!phase1) dj = __fadd_rn(dj, c[j]);
-      const bool nb = !inb[j], at = atup[j] != 0;
-      const bool fr = !isfinite(lo[j]) && !isfinite(hi[j]);
-      const bool el = nb && (((!at || fr) && dj < -cost_tol) ||
-                             ((at || fr) && dj > cost_tol));
-      any |= el;
-      const float sc = bland ? (el ? -(float)j : -BIG) : (el ? fabsf(dj) : -1.0f);
-      if (beats(sc, j, best, q)) {
-        best = sc;
-        q = j;
-        best_d = dj;
-      }
-    }
-    const int my_q = q;
-    const bool any_elig = __syncthreads_or(any);
-    block_argmax(best, q, &red);
-    if (my_q == q) s_dq = best_d;  // the thread that priced column q
-    for (int k = tid; k < m; k += nt) wq[k] = W[(size_t)k * nc + q];
-    __syncthreads();
-
-    // entering column alpha = B^-1 W[:, q] and the ratio test: one row per
-    // thread
-    const float dq = s_dq;
-    const bool fr_q = !isfinite(lo[q]) && !isfinite(hi[q]);
-    const bool up_q = !inb[q] && (!atup[q] || fr_q) && dq < -cost_tol;
-    const float sigma = up_q ? 1.0f : -1.0f;
-    float rpart = INFINITY;
-    for (int i = tid; i < m; i += nt) {
-      float a = 0.0f;
-      for (int k = 0; k < m; ++k)
-        a = __fadd_rn(a, __fmul_rn(BI[i * m + k], wq[k]));
-      alpha[i] = a;
-      const float eta = -sigma * a;
-      const float x = xB[i], l = bl[i], h = bh[i];
-      const bool below = x < l - feas_tol, above = x > h + feas_tol;
-      const bool moving = fabsf(eta) > pivot_tol;
-      const bool fl = isfinite(l), fh = isfinite(h);
-      const float se = moving ? eta : 1.0f;
-      float rt = INFINITY;
-      bool hu = false;
-      if (moving && !below && !above && eta < 0.0f && fl) rt = (x - l) / (-se);
-      if (moving && !below && !above && eta > 0.0f && fh) {
-        rt = (h - x) / se;
-        hu = true;
-      }
-      if (moving && below && eta > 0.0f) rt = (l - x) / se;
-      if (moving && above && eta < 0.0f) {
-        rt = (x - h) / (-se);
-        hu = true;
-      }
-      rt = fmaxf(rt, 0.0f);
-      ratio[i] = rt;
-      hits_up[i] = hu;
-      rpart = fminf(rpart, rt);
-    }
-    const float rmin = block_min(rpart, &red);
-    float pbest = -INFINITY;
-    int r = INT_MAX;
-    for (int i = tid; i < m; i += nt) {
-      const bool tied = ratio[i] <= rmin + feas_tol;
-      const float pk = bland ? (tied ? -(float)basis[i] : -BIG)
-                             : (tied ? fabsf(alpha[i]) : -1.0f);
-      if (beats(pk, i, pbest, r)) {
-        pbest = pk;
-        r = i;
-      }
-    }
-    block_argmax(pbest, r, &red);
-
-    // the step, decided identically by every thread from shared state
-    const float lo_q = lo[q], hi_q = hi[q];
-    const bool flo_q = isfinite(lo_q), fhi_q = isfinite(hi_q);
-    const float lo_q0 = flo_q ? lo_q : 0.0f, hi_q0 = fhi_q ? hi_q : 0.0f;
-    const float flip_theta = (flo_q && fhi_q) ? hi_q0 - lo_q0 : INFINITY;
-    const bool row_blocks = rmin < flip_theta;
-    const float theta = row_blocks ? ratio[r] : flip_theta;
-    int new_status = RUNNING;
-    if (!any_elig)
-      new_status = phase1 ? INFEASIBLE : OPTIMAL;
-    else if (!isfinite(theta))
-      new_status = phase1 ? INFEASIBLE : UNBOUNDED;
-    const bool stepping = new_status == RUNNING;
-    const bool do_pivot = stepping && row_blocks;
-    const bool do_flip = stepping && !row_blocks;
-    const bool atq = atup[q] != 0;
-    const float piv = alpha[r];
-    const int p_col = basis[r];
-    const bool leave_up = hits_up[r] != 0;
-
-    if (do_pivot) {
-      // product-form update: divide by safe_piv, eliminate with piv - 1
-      const float safe_piv = fabsf(piv) > PIVOT_FLOOR ? piv : 1.0f;
-      for (int j = tid; j < m; j += nt) rowdiv[j] = BI[r * m + j] / safe_piv;
-      __syncthreads();
-      for (int e = tid; e < mm; e += nt) {
-        const int i = e / m, j = e - (e / m) * m;
-        const float cv = i == r ? piv - 1.0f : alpha[i];
-        BI[e] = __fsub_rn(BI[e], __fmul_rn(cv, rowdiv[j]));
-      }
-    }
-    if (do_pivot || do_flip) {
-      float zq = atq ? hi_q0 : lo_q0;
-      if (!flo_q && !fhi_q) zq = 0.0f;
-      for (int i = tid; i < m; i += nt) {
-        xB[i] = (do_pivot && i == r)
-                    ? __fadd_rn(zq, __fmul_rn(sigma, theta))
-                    : __fadd_rn(xB[i], __fmul_rn(-sigma * alpha[i], theta));
-      }
-    }
-    __syncthreads();  // every thread is done with basis[r], atup[q], ...
-    if (tid == 0) {
-      if (do_flip) atup[q] = !atq;
-      if (do_pivot) {
-        atup[p_col] = leave_up;
-        inb[p_col] = 0;
-        inb[q] = 1;
-        basis[r] = q;
-        const float lb = flo_q ? lo_q : -BIG, hb = fhi_q ? hi_q : BIG;
-        bl[r] = lb <= -BIG / 2 ? -INFINITY : lb;
-        bh[r] = hb >= BIG / 2 ? INFINITY : hb;
-        cB[r] = c[q];
-      }
-    }
-    __syncthreads();
-
+    const RevStep st = rev_pivot(L, phase1, s_stall >= STALL_LIMIT, feas_tol,
+                                 cost_tol, pivot_tol, &s_dq);
     // objective progress and the stall counter
     if (tid == 0) {
-      float cur = infeas_sum;
-      if (!phase1) {
-        cur = 0.0f;
-        for (int i = 0; i < m; ++i)
-          cur = __fadd_rn(cur, __fmul_rn(cB[i], xB[i]));
-      }
+      const float cur = phase1 ? infeas_sum : rev_basic_objective(L);
       s_stall = cur < s_last - 1e-9f ? 0 : s_stall + 1;
       s_last = cur;
-      s_status = new_status;
+      s_status = st.status;
       s_iters += 1;
     }
     __syncthreads();

@@ -159,7 +159,8 @@ def _warm_rebuild(T, wb, warm, n):
     The basis-to-row correspondence is free, so each step pivots on the
     (unassigned row, remaining basis column) entry of largest |T|; the first
     such entry in row-major order wins ties.  Returns (T, basis, ok) with ok
-    False for lanes whose basis was singular (or that were cold)."""
+    False for lanes whose basis was singular (no remaining entry above
+    GJ_PIVOT_TOL, the rule of ``_rev_warm_rebuild``) or that were cold."""
     B, m, nc = T.shape
     lanes = torch.arange(B, device=T.device)
     idx = torch.where(wb >= 0, wb.long(), torch.full_like(wb.long(), nc))
@@ -174,8 +175,9 @@ def _warm_rebuild(T, wb, warm, n):
         r = scores.amax(2).argmax(1)
         cb = scores[lanes, r].argmax(1)
         piv = T[lanes, r, cb]
-        good = piv.abs() > GJ_PIVOT_TOL
-        act = ok & good
+        # the largest remaining score decides: when it is 0 the arg-max lands
+        # on entry (0, 0), which may be an assigned row's
+        act = ok & (scores[lanes, r, cb] > GJ_PIVOT_TOL)
         a = act.nonzero().squeeze(1)
         if a.numel():
             ra, ca, pa = r[a], cb[a], piv[a]

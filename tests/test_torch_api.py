@@ -75,26 +75,35 @@ def test_cli_out_matches_reference_cli(tmp_path):
 
 
 #: (instance, backend) the jax-free run solves: the wave on the bound sweep,
-#: and auto, which routes G3AP05 to ap_bb and G3KP10 to kp_bb (both k = 3,
-#: so through the AIRA scheduler)
-NO_JAX_RUNS = (("G2AP05", "wave"), ("G3AP05", "auto"), ("G3KP10", "auto"))
+#: auto, which routes G3AP05 to ap_bb and G3KP10 to kp_bb (both k = 3, so
+#: through the AIRA scheduler), and the wave's fragment path on G3AP05
+NO_JAX_RUNS = (
+    ("G2AP05", "wave"), ("G3AP05", "auto"), ("G3KP10", "auto"),
+    ("G3AP05", "fragments"),
+)
 
 
 def test_port_runs_without_jax():
     """With ``jax`` and ``moip_aira_tpu`` both unimportable, the port
-    reproduces the goldens on every route it has: the wave backend, the
-    AIRA scheduler, and the ap_bb and kp_bb engines."""
+    reproduces the goldens on every route it has: the wave backend and its
+    fragment path, the AIRA scheduler, and the ap_bb and kp_bb engines."""
     code = (
         "import json, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['moip_aira_tpu'] = None\n"
         "from moip_aira_tpu_torch.api import solve_front\n"
         "from moip_aira_tpu_torch.io import read_problem\n"
+        "from moip_aira_tpu_torch.solver.wave import WaveLexBackend\n"
         "out = {}\n"
         f"for name, backend in {NO_JAX_RUNS!r}:\n"
         f"    p = read_problem({EX!r} + '/' + name + '.lp')\n"
-        "    f = solve_front(p, backend=backend, device='cpu')\n"
-        "    out[name] = [f.backend_stats['backend'], f.points.tolist()]\n"
+        "    be = backend\n"
+        "    if backend == 'fragments':\n"
+        "        be = WaveLexBackend(p, device='cpu', fragments=True, batch_width=8)\n"
+        "    f = solve_front(p, backend=be, device='cpu')\n"
+        "    out[name + '/' + backend] = [\n"
+        "        f.backend_stats['backend'], f.backend_stats.get('kernel'),\n"
+        "        f.points.tolist()]\n"
         "print(json.dumps(out))\n"
     )
     env = dict(os.environ)
@@ -105,11 +114,15 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert {k: v[0] for k, v in got.items()} == {
-        "G2AP05": "wave", "G3AP05": "apbb", "G3KP10": "kpbb",
+    assert {k: v[:2] for k, v in got.items()} == {
+        "G2AP05/wave": ["wave", "dense_simplex"],
+        "G3AP05/auto": ["apbb", None],
+        "G3KP10/auto": ["kpbb", None],
+        "G3AP05/fragments": ["wave", "bb_fragment"],
     }
-    for name, _ in NO_JAX_RUNS:
-        assert (np.array(got[name][1]) == bundled_front(name)).all(), name
+    for name, backend in NO_JAX_RUNS:
+        pts = np.array(got[name + "/" + backend][2])
+        assert (pts == bundled_front(name)).all(), (name, backend)
 
 
 def imported_modules(path):

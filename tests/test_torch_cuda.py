@@ -68,7 +68,8 @@ def lanes(name, dev, seed):
 )
 def test_kernel_matches_plain_bit_for_bit(cuda_device, name):
     """K1 and its plain version sum in the same order, so on the same CUDA
-    inputs they agree exactly, warm lanes included."""
+    inputs they agree exactly, warm lanes and a singular warm basis (which
+    falls back to the cold start) included."""
     dev = cuda_device
     t, args = lanes(name, dev, seed=5)
     k1 = make_cuda_lp_batch(t.W_dev, dev)
@@ -80,6 +81,7 @@ def test_kernel_matches_plain_bit_for_bit(cuda_device, name):
     wa_w = first.at_upper.clone()
     wb_w[1::2] = -1
     wa_w[1::2] = 0
+    wb_w[2] = int(torch.nonzero(t.W_dev[0] == 0)[0])  # one column m times
     for wbx, wax in ((wb, wa), (wb_w, wa_w)):
         out = k1(*args, wbx, wax)
         ref = st.dense_lp_batch_ref(k1.W, *args, wbx, wax)
@@ -145,3 +147,86 @@ def test_revised_kernel_refuses_tensors_on_another_device(cuda_device):
     with pytest.raises(ValueError):
         k2(*(a.cpu() for a in args), wb, wa)
     assert k2.launches == 0
+
+
+def fragment_lanes(name, dev, lanes_n, seed):
+    """K3's lanes at ``name``'s shape: stage roots (one objective each) whose
+    objective-bound box is cut inside the golden front's range on most
+    lanes, so that their LPs are fractional and the lanes branch; logical
+    bounds row-scaled; no incumbent on half the lanes and a finite one on
+    the other half."""
+    rng = np.random.default_rng(seed)
+    p = read_problem(os.path.join(EX, name))
+    t = lp_tensors(p, dev)
+    n, m, k = p.n, p.m_total, p.objcnt
+    front = np.array([
+        [int(v) for v in line.split()]
+        for line in open(os.path.join(EX, name.replace(".lp", ".out")))
+        if line.split() and all(v.lstrip("-").isdigit() for v in line.split())
+    ])
+    is_min = p.objsen is Sense.MIN
+    c = np.zeros((lanes_n, n + m))
+    lo = np.zeros((lanes_n, n + m))
+    hi = np.zeros((lanes_n, n + m))
+    for b in range(lanes_n):
+        c[b, :n] = (1.0 if is_min else -1.0) * p.C[b % k]
+        box = np.full(k, np.inf if is_min else -np.inf)
+        for jj in range(k):
+            if b > 0 and rng.random() < 0.6:
+                box[jj] = float(rng.integers(front[:, jj].min(), front[:, jj].max() + 1))
+        olo, ohi = (np.full(k, -np.inf), box) if is_min else (box, np.full(k, np.inf))
+        lo[b] = np.concatenate([p.lb, p.row_lb, olo])
+        hi[b] = np.concatenate([p.ub, p.row_ub, ohi])
+    lo[:, n:] *= t.row_scale
+    hi[:, n:] *= t.row_scale
+    c, lo, hi = (torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous() for a in (c, lo, hi))
+    par = torch.zeros((lanes_n, 4), dtype=torch.float32, device=dev)
+    par[:, 0] = float("inf")
+    par[1::2, 0] = 1e4
+    par[:, 1] = 1.0
+    par[:, 3] = 1.0
+    return p, t, c, lo, hi, par
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,lanes_n,F,max_ticks",
+    # the smoke's three shapes: G3KP10 (deep trees, budget stops), 2AP20
+    # (all in shared memory), 2AP40 (82 x 1682, about 80 KB of shared
+    # memory a lane, a tick stop)
+    [("G3KP10.lp", 64, 32, 8192), ("2AP20.lp", 32, 32, 8192), ("2AP40.lp", 16, 8, 2000)],
+)
+def test_fragment_kernel_matches_plain_bit_for_bit(cuda_device, name, lanes_n, F, max_ticks):
+    """K3 and its plain version walk the same trees: every raw output of
+    every lane equal, cold and with half the lanes warm from the first
+    launch's final bases (one of them singular)."""
+    from moip_aira_tpu_torch.solver.bb_torch import fragment_batch_ref
+    from moip_aira_tpu_torch.solver.cuda_bb import make_cuda_bb_batch
+
+    dev = cuda_device
+    p, t, c, lo, hi, par = fragment_lanes(name, dev, lanes_n, seed=7)
+    par[:, 2] = F
+    m, nc = t.W_dev.shape
+    node_iters = max(200, 6 * m)
+    fn, meta = make_cuda_bb_batch(
+        t.W_dev, p.is_int, dev, F=F, D=128, node_iters=node_iters, max_ticks=max_ticks
+    )
+    first = fn(c, lo, hi, par)
+    wb = first["fin_basis"].clone()
+    wa = torch.as_tensor(meta["unpack_atup1"](first["fin_atup"].cpu().numpy()), dtype=torch.int32, device=dev)
+    wb[1::2] = -1
+    wa[1::2] = 0
+    wb[2] = int(torch.nonzero(t.W_dev[0] == 0)[0])
+    for wbx, wax in ((None, None), (wb.contiguous(), wa.contiguous())):
+        out = fn(c, lo, hi, par, wbx, wax)
+        if wbx is None:
+            wbx = torch.full((lanes_n, m), -1, dtype=torch.int32, device=dev)
+            wax = torch.zeros((lanes_n, nc), dtype=torch.int32, device=dev)
+        ref = fragment_batch_ref(
+            fn.W, p.is_int, c, lo, hi, par, wbx, wax, F=F, D=128,
+            node_iters=node_iters, max_ticks=max_ticks,
+        )
+        torch.cuda.synchronize()
+        for f in ref._fields:
+            assert torch.equal(out[f], getattr(ref, f)), f
+    assert int(first["nlog"].sum()) > lanes_n and fn.launches == 3

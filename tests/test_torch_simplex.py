@@ -268,6 +268,26 @@ def test_singular_warm_basis_falls_back_to_cold():
         assert torch.equal(getattr(rb, f), getattr(r, f)), f
 
 
+def test_singular_warm_basis_with_a_nonzero_corner_starts_cold():
+    """A basis that names one column m times, a column outside row 0: the
+    rebuild pivots once, then every remaining score is 0 while entry (0, 0)
+    of the tableau is W[0, 0] != 0.  The lane falls back to the cold start
+    and returns exactly the cold result; the rule that tested the entry the
+    arg-max lands on pivoted there and accepted a garbage basis."""
+    p, W, c, lo, hi = g2ap05_root()
+    m, nc = W.shape
+    a = int(torch.nonzero(W[0] == 0)[0])
+    assert W[0, 0] != 0 and W[:, a].abs().max() > st.GJ_PIVOT_TOL
+    wb0 = torch.full((8, m), -1, dtype=torch.int32)
+    wa0 = torch.zeros((8, nc), dtype=torch.int32)
+    r = st.dense_lp_batch_ref(W, tile(c), tile(lo), tile(hi), wb0, wa0)
+    bad = torch.full((8, m), a, dtype=torch.int32)
+    bad[1::2] = -1  # a mixed wave: the cold lanes are untouched
+    rb = st.dense_lp_batch_ref(W, tile(c), tile(lo), tile(hi), bad, wa0)
+    for f in r._fields:
+        assert torch.equal(getattr(rb, f), getattr(r, f)), f
+
+
 def test_empty_box_is_infeasible_without_pivots():
     p, W, c, lo, hi = g2ap05_root()
     m, nc = W.shape

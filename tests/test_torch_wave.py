@@ -12,6 +12,7 @@ import torch
 from moip_aira_tpu.io import read_problem as ref_read_problem
 from moip_aira_tpu.solver.wave import WaveLexBackend as RefWave
 from moip_aira_tpu_torch.io import read_problem
+from moip_aira_tpu_torch.solver.cuda_bb import CudaBBBatch
 from moip_aira_tpu_torch.solver.cuda_lp import CudaLPBatch, CudaRevBatch
 from moip_aira_tpu_torch.solver.lex import LexRequest
 from moip_aira_tpu_torch.solver.wave import WaveLexBackend
@@ -108,7 +109,9 @@ def test_feeder_streams_requests():
 def test_engine_and_fragments_choices():
     """The LP engine is chosen by the LP's shape and nothing else; the
     device alone picks the kernel or its plain version: on the CPU the
-    wrapper runs the plain version and counts no launch."""
+    wrapper runs the plain version and counts no launch.  ``fragments``
+    takes True (K3's wrapper, solver/cuda_bb.py), False and "auto", which
+    is off on the CPU."""
     p = read_problem(os.path.join(EX, "G2AP05.lp"))
     be = WaveLexBackend(p, device="cpu")
     assert be.engine == "dense" and type(be.lp_kernel) is CudaLPBatch
@@ -117,9 +120,12 @@ def test_engine_and_fragments_choices():
     assert be.name == "wave" and be.supports_feeder and be.batch_width == 256
     be.lex_solve_batch(g2ap05_grid()[:2])
     assert be.device_waves > 0 and be.lp_kernel.launches == 0
-    for frag in (True, "auto"):
-        with pytest.raises(NotImplementedError, match="K3"):
-            WaveLexBackend(p, device="cpu", fragments=frag)
+    for frag, on in ((True, True), ("auto", False), (False, False)):
+        fb = WaveLexBackend(p, device="cpu", fragments=frag)
+        assert fb.fragments is on
+        assert (fb.frag_kernel is not None) == on
+        if on:
+            assert type(fb.frag_kernel) is CudaBBBatch and fb.frag_kernel.F == 32
     with pytest.raises(ValueError, match="engine"):
         WaveLexBackend(p, device="cpu", engine="torch")
 
