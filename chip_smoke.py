@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (moip_aira_tpu_torch) on one GPU.
 
-Drives the port's main path on the card — read_problem -> solve_front ->
+Drives the port's main paths on the card — read_problem -> solve_front ->
 bound sweep (k=2) or AIRA scheduler (k>=3) -> WaveLexBackend -> the
 hand-written CUDA kernels, K1 (dense tableau, LPs of n + m < 512 columns)
 and K2 (revised simplex, wider LPs) on the per-LP path, K3 (B&B fragments,
 a subtree per lane) on the fragment path -> f64 certification and audit ->
-host branch and bound — and fails unless every phase passes:
+host branch and bound; and read_problem -> solve_front -> the knapsack
+front DP, K4 (one launch per item) for single-capacity bi-objective
+knapsacks — and fails unless every phase passes:
 
 1. probe:     the card (nvidia-smi), torch, CUDA and nvcc versions;
-2. build:     K1 (csrc/dense_simplex.cu), K2 (csrc/revised_simplex.cu) and
-              K3 (csrc/bb_fragment.cu), one nvcc each, started together,
-              each timed;
+2. build:     K1 (csrc/dense_simplex.cu), K2 (csrc/revised_simplex.cu),
+              K3 (csrc/bb_fragment.cu) and K4 (csrc/kp_dp.cu), one nvcc
+              each, started together, each timed;
 3. kernels:   K1 against its plain PyTorch version on the card, at 2AP20's
               and G2AP05's LP shapes with 256 lanes (cold and half-warm):
               raw outputs equal bit for bit on every lane, then certified
@@ -49,7 +51,21 @@ host branch and bound — and fails unless every phase passes:
 11. frag3:    G3AP05 (k=3, the scheduler ladder) on the fragment path and
               G3KP10 with frag_nodes=2 (budget stops, re-opened siblings),
               held the same way;
-12. frag-wide: the full 2AP40 front on the fragment path, held the same way.
+12. frag-wide: the full 2AP40 front on the fragment path, held the same way;
+13. dp-kernel: K4 against its plain version on the card at G2KP50, 2KP100
+              and 2KP500 (generated, seed 1): the full final int32 table
+              equal bit for bit, one launch per expanded item; K4's time for
+              the whole DP and per item pass (CUDA events, median of 5), the
+              plain version's, and the byte bound (dp_bound);
+14. dp:       the DP path through solve_front: 2KP100 through the CLI with
+              its defaults (.out against the golden), G2KP50 and the
+              knapsack .mop with dp="on" (against their goldens), 2KP500
+              with dp="auto" (against the plain version's front from phase
+              13, nondominated, at least 2 points); every DP front with
+              ip_count 0, K4 launched once per expanded item and K1-K3
+              never.  Then G2KP50 and 2KP100 timed on the DP (dp="on")
+              and on the AIRA engine (dp="off", kp_bb on the host), the
+              measurement behind the n >= 80 rule of dp="auto".
 
 Each phase prints one JSON line.  The last two lines are the kernel table
 ({"kernels": [...]}) and {"ok": true, "device": {...}}.  Any failure raises
@@ -77,7 +93,10 @@ KERNEL_SHAPES = ("2AP20", "G2AP05")
 #: K2's shapes: (instance, lanes, starts)
 REVISED_SHAPES = (("2AP40", 256, ("cold", "warm")), ("2AP100", 64, ("cold",)))
 CROSSOVER_SHAPES = ("2AP20", "2AP40")
-KERNELS = ("dense_simplex", "revised_simplex", "bb_fragment")
+KERNELS = ("dense_simplex", "revised_simplex", "bb_fragment", "kp_dp")
+#: K4's instances: bundled, or generated by utils/generate.kp_lp (seed 1)
+#: with this many items
+DP_INSTANCES = (("G2KP50", None), ("2KP100", None), ("2KP500", 500))
 #: K3's shapes: (instance, lanes, F, max_ticks, starts)
 FRAGMENT_SHAPES = (
     ("G3KP10", 256, 32, 8192, ("cold",)),
@@ -98,6 +117,10 @@ LANES = 256
 # over these
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# int32 operations per second outside the tensor cores: 64 INT32 lanes an SM
+# against 128 FP32 lanes (Hopper white paper), so half the float32 lane rate,
+# 132 SMs x 64 x 1.98 GHz
+PEAK_I32_PER_S = 16.7e12
 OBJ_RTOL = 1e-3  # f32 objectives of two pivot paths (tests/test_simplex.py)
 CERT_RTOL = 1e-7  # certified f64 optima of the same LP from two bases
 # at most this share of a front's device LPs may fail f64 certification and
@@ -205,6 +228,21 @@ def bound(kernel, m, n, iters, warm_lanes, nlog=None):
         ops += B * 2 * m * nc
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_F32_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def dp_bound(cells, passes):
+    """The least time the card could take for ``passes`` item passes of K4
+    over a table of ``cells`` int32 cells, in ms, and what sets it.
+
+    Bytes: each pass must read the previous table once and write the new
+    one once, 8 bytes a cell; a real table is far larger than the 50 MB L2,
+    so nothing stays on chip from one pass to the next.  Operations: a
+    compare, an add and a max a cell, 3 int32 operations, over the card's
+    int32 rate outside the tensor cores.  Bytes set it: 8 / 3.35e12 s a
+    cell against 3 / 16.7e12."""
+    t_bytes = 8.0 * cells * passes / PEAK_BYTES_PER_S
+    t_ops = 3.0 * cells * passes / PEAK_I32_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -923,6 +961,246 @@ def phase_frag_front(phase, name, workers, **kw):
     return row
 
 
+def dp_problem(name, items, tmp):
+    """The knapsack instance ``name``: bundled when ``items`` is None, else
+    generated by the port's copy of the reference generator (seed 1)."""
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.utils.generate import kp_lp
+
+    if items is None:
+        return read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+    path = os.path.join(tmp, f"{name}.lp")
+    with open(path, "w") as fh:
+        fh.write(kp_lp(items, 2, seed=1))
+    return read_problem(path)
+
+
+def phase_dp_kernel(tmp):
+    """K4 against dp_table_ref on the same CUDA items: the full final
+    table equal bit for bit.  Returns the rows and each instance's front
+    from the plain version's table."""
+    import torch
+
+    from moip_aira_tpu_torch.solver.cuda_dp import CudaKPDP
+    from moip_aira_tpu_torch.solver.kp_front import (
+        _extract_front, detect_kp2, dp_items, dp_table_ref, value_sum,
+    )
+
+    dev = torch.device("cuda", 0)
+    rows, fronts = [], {}
+    for name, n_gen in DP_INSTANCES:
+        kp = detect_kp2(dp_problem(name, n_gen, tmp))
+        if kp is None:
+            raise AssertionError(f"{name}: not detected as a KP2")
+        items = dp_items(kp, dev)
+        cap, S = kp.cap, value_sum(kp)
+        n = int(items.shape[1])
+        dp = CudaKPDP()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = dp(items, cap, S)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        want, plain_ms = events_ms(lambda: dp_table_ref(items, cap, S))
+        if not torch.equal(got, want):
+            bad = torch.nonzero(got != want)[:5].tolist()
+            raise AssertionError(
+                f"K4 {name}: the final table differs from the plain "
+                f"version's at (c, s) {bad}"
+            )
+        if dp.launches != n:
+            raise AssertionError(f"K4 {name}: {dp.launches} launches for {n} items")
+        fronts[name] = _extract_front(want[cap].cpu().numpy(), kp)
+        del got, want
+        ms = cuda_ms(lambda: dp(items, cap, S))
+        bound_ms, bound_by = dp_bound(kp.table_cells, n)
+        row = {
+            "phase": "dp-kernel",
+            "kernel": "kp_dp",
+            "instance": name,
+            "items": n,
+            "cap": cap,
+            "S": S,
+            "table_cells": kp.table_cells,
+            "table_mib": 4 * kp.table_cells / 2**20,
+            "peak_mib": peak / 2**20,
+            "points": int(fronts[name].shape[0]),
+            "launches": n,
+            "bitwise_equal": True,
+            "max_abs_err": 0.0,
+            "ms": ms,
+            "ms_per_pass": ms / n,
+            "plain_ms": plain_ms,
+            "plain_ms_per_pass": plain_ms / n,
+            "bound_ms": bound_ms,
+            "bound_ms_per_pass": bound_ms / n,
+            "bound_by": bound_by,
+            "bound_share": bound_ms / ms,
+        }
+        emit(row)
+        rows.append(row)
+    return rows, fronts
+
+
+def dp_front_run(name, p, dp, want):
+    """One front through solve_front with ``dp``, the launch counts zeroed
+    just before it and read just after: the golden (or reference) front,
+    ip_count 0, K4 once per expanded item, K1-K3 never."""
+    import numpy as np
+    import torch
+
+    from moip_aira_tpu_torch.api import solve_front
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
+    from moip_aira_tpu_torch.solver.kp_front import detect_kp2
+
+    n_items = int(detect_kp2(p).w.shape[0])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    front = solve_front(p, device="cuda", dp=dp)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    stats = front.backend_stats or {}
+    if not np.array_equal(front.points, want):
+        raise AssertionError(f"{name} (dp={dp}): the front differs from the reference")
+    others = {k: v for k, v in launches.items() if k != "kp_dp"}
+    if not (
+        front.ip_count == 0
+        and stats.get("backend") == "kp_front"
+        and launches["kp_dp"] == n_items == stats.get("kernel_launches")
+        and not any(others.values())
+    ):
+        raise AssertionError(
+            f"{name} (dp={dp}): ip_count {front.ip_count}, stats {stats}, "
+            f"launches {launches} (want the DP, K4 once per each of {n_items} "
+            f"items, no other kernel)"
+        )
+    return front, seconds, launches["kp_dp"]
+
+
+def nondominated(points):
+    """The descending-lex front strictly decreasing in its first objective
+    and strictly increasing in its second: no point dominates another."""
+    import numpy as np
+
+    return bool(
+        np.all(np.diff(points[:, 0]) < 0) and np.all(np.diff(points[:, 1]) > 0)
+    )
+
+
+def phase_dp(tmp, plain_fronts):
+    """The knapsack front DP through the port's entry points: the CLI with
+    its defaults, solve_front with dp="on" and dp="auto"; then the DP
+    against the AIRA engine at n = 50 and n = 100.  Returns the row of the
+    2KP500 front, the main path of K4's kernel entry."""
+    import numpy as np
+    import torch
+
+    from moip_aira_tpu_torch.api import solve_front
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
+    from moip_aira_tpu_torch.solver.kp_front import detect_kp2
+
+    # dp="auto" follows the reference's rule, not an override from outside
+    os.environ.pop("MOIP_DP", None)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+
+    p100 = read_problem(os.path.join(EXAMPLES, "2KP100.lp"))
+    out = os.path.join(tmp, "2KP100.out")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [
+            sys.executable, "-m", "moip_aira_tpu_torch",
+            "-p", os.path.join(EXAMPLES, "2KP100.lp"), "-o", out,
+            "--device", "cuda", "--stats",
+        ],
+        cwd=REPO, env=env, capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"CLI failed on 2KP100 (exit {proc.returncode}):\n{proc.stderr[-4000:]}"
+        )
+    stats = next(
+        (json.loads(line[len("[stats] "):]) for line in proc.stderr.splitlines()
+         if line.startswith("[stats] {")),
+        None,
+    )
+    if stats is None:
+        raise RuntimeError("CLI printed no backend stats on 2KP100")
+    if filtered(out) != filtered(os.path.join(EXAMPLES, "2KP100.out")):
+        raise AssertionError("2KP100 (CLI): the front differs from the golden")
+    ips = next(int(line.split()[0]) for line in open(out) if "IPs solved" in line)
+    n100 = int(detect_kp2(p100).w.shape[0])
+    if not (
+        stats.get("backend") == "kp_front" and stats.get("kernel") == "kp_dp"
+        and stats.get("kernel_launches") == stats.get("items") == n100 and ips == 0
+    ):
+        raise AssertionError(f"2KP100 (CLI): stats {stats}, {ips} IPs (want the DP on K4)")
+    row = {
+        "phase": "dp", "instance": "2KP100", "entry": "cli", "dp": "auto",
+        "seconds": seconds, "ips": ips, "points": len(golden_front("2KP100")),
+        "launches": stats["kernel_launches"], "items": stats["items"],
+        "table_cells": stats["table_cells"], "golden": True,
+    }
+    emit(row)
+
+    runs = (
+        ("G2KP50", dp_problem("G2KP50", None, tmp), "on"),
+        ("moip_2_30_knapsack",
+         read_problem(os.path.join(EXAMPLES, "moip_2_30_knapsack.mop")), "on"),
+        ("2KP500", dp_problem("2KP500", dict(DP_INSTANCES)["2KP500"], tmp), "auto"),
+    )
+    main = None
+    for name, p, dp in runs:
+        want = plain_fronts[name] if name == "2KP500" else golden_front(name)
+        front, seconds, launches = dp_front_run(name, p, dp, want)
+        if name == "2KP500" and not (front.points.shape[0] >= 2 and nondominated(front.points)):
+            raise AssertionError(f"2KP500: {front.points.shape[0]} points, or a dominated one")
+        row = {
+            "phase": "dp", "instance": name, "entry": "solve_front", "dp": dp,
+            "n": p.n, "seconds": seconds, "ips": int(front.ip_count),
+            "points": int(front.points.shape[0]), "launches": launches,
+            "items": front.backend_stats["items"],
+            "table_cells": front.backend_stats["table_cells"],
+            "reference": "plain version" if name == "2KP500" else "golden",
+        }
+        emit(row)
+        if name == "2KP500":
+            main = row
+
+    # the n >= 80 rule of dp="auto": the DP on K4 against the AIRA engine
+    # (kp_bb on the host), three runs each, in this process
+    for name in ("G2KP50", "2KP100"):
+        p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+        want = golden_front(name)
+        times = {"on": [], "off": []}
+        for _ in range(3):
+            for dp in ("on", "off"):
+                if dp == "on":
+                    _, seconds, _ = dp_front_run(name, p, dp, want)
+                else:
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    front = solve_front(p, device="cuda", dp="off")
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                    if not np.array_equal(front.points, want) or any(LAUNCHES.values()):
+                        raise AssertionError(f"{name} (dp=off): front or launches wrong")
+                    if front.backend_stats.get("backend") != "kpbb":
+                        raise AssertionError(f"{name} (dp=off): {front.backend_stats}")
+                times[dp].append(seconds)
+        row = {
+            "phase": "dp", "instance": name, "entry": "threshold", "n": p.n,
+            "dp_seconds": times["on"], "aira_seconds": times["off"],
+            "dp_median": sorted(times["on"])[1], "aira_median": sorted(times["off"])[1],
+        }
+        emit(row)
+    return main
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -953,6 +1231,9 @@ def main() -> int:
     phase_frag_front("frag3", "G3AP05", 2)
     phase_frag_front("frag3", "G3KP10", 1, frag_nodes=2)
     phase_frag_front("frag-wide", "2AP40", 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        k4_rows, plain_fronts = phase_dp_kernel(tmp)
+        dp_main = phase_dp(tmp, plain_fronts)
     if "jax" in sys.modules or "moip_aira_tpu" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -975,6 +1256,25 @@ def main() -> int:
             "library_ms": None,
         }
 
+    def dp_entry(rows, main):
+        # one item pass of K4 at 2KP500, like the other entries' one
+        # launch; no single PyTorch call computes one DP item step (a
+        # shifted read, a masked add and a max over two tables)
+        row = next(r for r in rows if r["instance"] == main["instance"])
+        return {
+            "name": "kp_dp",
+            "route": "cuda",
+            "source": "moip_aira_tpu_torch/csrc/kp_dp.cu",
+            "replaces": "moip_aira_tpu/solver/kp_front.py:296",
+            "launches": main["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": row["ms_per_pass"],
+            "plain_ms": row["plain_ms_per_pass"],
+            "bound_ms": row["bound_ms_per_pass"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+        }
+
     emit({
         "kernels": [
             entry("dense_simplex", "moip_aira_tpu/solver/pallas_lp.py:116",
@@ -983,6 +1283,7 @@ def main() -> int:
                   k2_rows, wide, "2AP40"),
             entry("bb_fragment", "moip_aira_tpu/solver/pallas_bb.py:211",
                   k3_rows, frag, "2AP20"),
+            dp_entry(k4_rows, dp_main),
         ]
     })
     emit({

@@ -1,10 +1,11 @@
 """High-level front computation — the port of ``moip_aira_tpu/api.py``.
 
-Same routing and the same drivers (the bound sweep for k=2, the AIRA
-scheduler otherwise), with the device LPs of the wave backend on the
-``device`` given.  What the port does not have yet raises
-NotImplementedError instead of running something else: the ``jax``
-backend, the knapsack front DP (``dp="on"``, kernel K4) and the mesh."""
+Same routing and the same drivers (the knapsack front DP for
+single-capacity bi-objective knapsacks, the bound sweep for k=2, the AIRA
+scheduler otherwise), with the device work (the DP's kernel K4, the wave
+backend's LPs) on the ``device`` given.  What the port does not have yet
+raises NotImplementedError instead of running something else: the ``jax``
+backend and the mesh."""
 
 from __future__ import annotations
 
@@ -25,6 +26,9 @@ from moip_aira_tpu_torch.sense import INF, Sense
 
 __all__ = ["FrontResult", "make_backend", "solve_front"]
 
+#: ``dp="auto"`` tries the knapsack front DP from this many variables on
+DP_MIN_VARS = 80
+
 
 @dataclasses.dataclass
 class FrontResult:
@@ -38,7 +42,9 @@ class FrontResult:
     #: counters of the backend that computed the front: the wave backend's
     #: device_waves, lp_count, verify_fallbacks, the name and
     #: kernel_launches of the kernel that served its device waves (the LP
-    #: kernel, or K3 on the fragment path, which adds its frag_stats)
+    #: kernel, or K3 on the fragment path, which adds its frag_stats); for
+    #: the knapsack front DP, backend "kp_front", kernel "kp_dp" (K4) with
+    #: its launches, the expanded items, the table cells and the engine
     backend_stats: Optional[dict] = None
 
     @property
@@ -143,9 +149,19 @@ def solve_front(
     """Compute the exact nondominated set of ``problem``.
 
     Mirrors the reference driver: the synergistic cluster decomposition by
-    default, or the EPP range split with ``split=True``.  ``dp``: the
-    knapsack front DP is not ported yet, so ``"auto"`` and ``"off"`` take
-    the AIRA engine (whose front is the same) and ``"on"`` raises.
+    default, or the EPP range split with ``split=True``.
+
+    ``dp``: 'auto' sends single-capacity bi-objective knapsack instances of
+    n >= 80 variables to the full-front dynamic program
+    (solver/kp_front.py: K4 on a CUDA ``device``, its plain version on the
+    CPU), which returns the whole nondominated set with no MIP ladder
+    (``ip_count`` 0); 'off' forces the general AIRA engine; 'on' tries the
+    DP at any size, even when the ``MOIP_DP`` environment override (which
+    'auto' reads; the test suite sets it to 'off' to pin the AIRA path)
+    says otherwise.  A problem the DP does not detect takes the AIRA
+    engine.  The front is identical either way (the DP is exact); the
+    decomposition flags only affect how the AIRA engine would have
+    parallelised, so they are validated but otherwise moot.
     ``sweep``: the adaptive bound sweep for bi-objective problems on the
     wave backend ('auto'), forced ('on') or never ('off'); MOIP_SWEEP
     overrides 'auto'."""
@@ -157,11 +173,23 @@ def solve_front(
         raise ValueError(
             f"split_normal supports at most {MAX_WORKERS_NORMAL_SPLIT} workers"
         )
-    if dp == "on":
-        raise NotImplementedError(
-            "dp='on': the knapsack front DP and its kernel K4 are not ported "
-            "yet (ROADMAP.md, queue 2, K4)"
-        )
+    if dp == "auto":
+        dp = os.environ.get("MOIP_DP", "auto")
+    # the reference's threshold: below n = 80 it measured the host engine
+    # ahead of the DP's device round trip (moip_aira_tpu/api.py:171-176)
+    if dp == "on" or (dp != "off" and problem.n >= DP_MIN_VARS):
+        from moip_aira_tpu_torch.solver.kp_front import kp2_front
+
+        stats: dict = {}
+        pts = kp2_front(problem, engine="auto", device=device, stats=stats)
+        if pts is not None:
+            return FrontResult(
+                points=pts,
+                ip_count=0,
+                cpu_seconds=time.process_time() - t_cpu0,
+                elapsed_seconds=time.monotonic() - t_wall0,
+                backend_stats=stats,
+            )
 
     be = make_backend(
         problem, backend, device=device, mesh_devices=mesh_devices,

@@ -3,9 +3,10 @@
 The flags of ``moip_aira_tpu/cli.py`` (``-p/--lp``, ``-o/--output``,
 ``-t/--threads``, ``-c/--cplex_threads``, ``-s/--spread``, ``--split``,
 ``--split-normal``, ``--backend``, ``--mesh``, ``--dp``, ``--sweep``,
-``--stats``) plus ``--device {cuda,cpu}``, which says where the wave
-backend's LPs run (default cuda; there is no fallback to the CPU).  The
-``.out`` file is written by the byte-equal writer (``io/writer.py``).
+``--stats``) plus ``--device {cuda,cpu}``, which says where the device
+work runs: the knapsack front DP (kernel K4) and the wave backend's LPs
+(default cuda; there is no fallback to the CPU).  The ``.out`` file is
+written by the byte-equal writer (``io/writer.py``).
 """
 
 from __future__ import annotations
@@ -58,14 +59,16 @@ def build_argparser() -> argparse.ArgumentParser:
                     "knapsack/assignment engines; auto routes each detected "
                     "family there; jax is not ported yet).")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="Where the wave backend's LP relaxations run "
-                         "(default cuda).")
+                    help="Where the knapsack front DP and the wave backend's "
+                         "LP relaxations run (default cuda).")
     ap.add_argument("--mesh", dest="mesh", type=int, default=None,
                     help="Shard solve batches over an N-device mesh (not "
                          "ported yet).")
     ap.add_argument("--dp", choices=("auto", "off"), default="auto",
-                    help="Knapsack front DP (not ported yet: both values take "
-                         "the general AIRA engine).")
+                    help="Structure-aware full-front dynamic program for "
+                         "single-capacity bi-objective knapsacks of 80 or "
+                         "more variables (default auto; MOIP_DP overrides "
+                         "it; off forces the general AIRA engine).")
     ap.add_argument("--sweep", choices=("auto", "on", "off"), default="auto",
                     help="Adaptive parallel bound sweep for bi-objective "
                          "fronts (default auto: on for the wave backend; off "

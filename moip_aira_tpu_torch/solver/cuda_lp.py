@@ -34,9 +34,9 @@ from moip_aira_tpu_torch.solver.simplex_torch import (
 
 
 #: launches of each kernel in this process, by kernel name (the wrappers'
-#: own ``launches`` count per object; K3's wrapper is solver/cuda_bb.py);
-#: ``reset_launches`` zeroes them
-LAUNCHES = {"dense_simplex": 0, "revised_simplex": 0, "bb_fragment": 0}
+#: own ``launches`` count per object; K3's wrapper is solver/cuda_bb.py,
+#: K4's solver/cuda_dp.py); ``reset_launches`` zeroes them
+LAUNCHES = {"dense_simplex": 0, "revised_simplex": 0, "bb_fragment": 0, "kp_dp": 0}
 
 
 def reset_launches() -> None:

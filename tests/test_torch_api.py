@@ -76,17 +76,19 @@ def test_cli_out_matches_reference_cli(tmp_path):
 
 #: (instance, backend) the jax-free run solves: the wave on the bound sweep,
 #: auto, which routes G3AP05 to ap_bb and G3KP10 to kp_bb (both k = 3, so
-#: through the AIRA scheduler), and the wave's fragment path on G3AP05
+#: through the AIRA scheduler), the wave's fragment path on G3AP05, and the
+#: knapsack front DP (dp="on") on G2KP50
 NO_JAX_RUNS = (
     ("G2AP05", "wave"), ("G3AP05", "auto"), ("G3KP10", "auto"),
-    ("G3AP05", "fragments"),
+    ("G3AP05", "fragments"), ("G2KP50", "dp"),
 )
 
 
 def test_port_runs_without_jax():
     """With ``jax`` and ``moip_aira_tpu`` both unimportable, the port
     reproduces the goldens on every route it has: the wave backend and its
-    fragment path, the AIRA scheduler, and the ap_bb and kp_bb engines."""
+    fragment path, the AIRA scheduler, the ap_bb and kp_bb engines, and the
+    knapsack front DP."""
     code = (
         "import json, sys\n"
         "sys.modules['jax'] = None\n"
@@ -97,10 +99,12 @@ def test_port_runs_without_jax():
         "out = {}\n"
         f"for name, backend in {NO_JAX_RUNS!r}:\n"
         f"    p = read_problem({EX!r} + '/' + name + '.lp')\n"
-        "    be = backend\n"
+        "    be, dp = backend, 'auto'\n"
         "    if backend == 'fragments':\n"
         "        be = WaveLexBackend(p, device='cpu', fragments=True, batch_width=8)\n"
-        "    f = solve_front(p, backend=be, device='cpu')\n"
+        "    if backend == 'dp':\n"
+        "        be, dp = 'auto', 'on'\n"
+        "    f = solve_front(p, backend=be, device='cpu', dp=dp)\n"
         "    out[name + '/' + backend] = [\n"
         "        f.backend_stats['backend'], f.backend_stats.get('kernel'),\n"
         "        f.points.tolist()]\n"
@@ -119,6 +123,7 @@ def test_port_runs_without_jax():
         "G3AP05/auto": ["apbb", None],
         "G3KP10/auto": ["kpbb", None],
         "G3AP05/fragments": ["wave", "bb_fragment"],
+        "G2KP50/dp": ["kp_front", "kp_dp"],
     }
     for name, backend in NO_JAX_RUNS:
         pts = np.array(got[name + "/" + backend][2])
@@ -156,8 +161,11 @@ def test_port_imports_nothing_of_the_jax_package():
 
 def test_unported_paths_raise(tmp_path):
     p = read_problem(os.path.join(EX, "G2AP05.lp"))
-    with pytest.raises(NotImplementedError, match="K4"):
-        solve_front(p, backend="wave", device="cpu", dp="on")
+    # dp="on" on a problem the knapsack DP does not detect takes the AIRA
+    # engine
+    front = solve_front(p, backend="wave", device="cpu", dp="on")
+    assert front.backend_stats["backend"] == "wave" and front.ip_count > 0
+    assert (front.points == bundled_front("G2AP05")).all()
     with pytest.raises(NotImplementedError):
         solve_front(p, backend="wave", device="cpu", mesh_devices=2)
     with pytest.raises(NotImplementedError):

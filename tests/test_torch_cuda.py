@@ -1,5 +1,5 @@
-"""K1 and K2, the CUDA kernels, against their plain PyTorch versions on
-the card.
+"""K1, K2, K3 and K4, the CUDA kernels, against their plain PyTorch
+versions on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no jax, so on a machine with a card and without jax it runs alone:
@@ -230,3 +230,60 @@ def test_fragment_kernel_matches_plain_bit_for_bit(cuda_device, name, lanes_n, F
         for f in ref._fields:
             assert torch.equal(out[f], getattr(ref, f)), f
     assert int(first["nlog"].sum()) > lanes_n and fn.launches == 3
+
+
+def random_dp_items(seed, n=24, cap=300):
+    """K4's items with several of weight 0 and of s-value 0, and one
+    heavier than the capacity."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 40, n)
+    w[:3] = 0
+    w[-1] = cap + 1
+    b = rng.integers(0, 100, n)
+    a = rng.integers(0, 60, n)
+    a[3:5] = 0
+    return np.stack([w, b, a]).astype(np.int32), cap, int(a.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["G2KP50.lp", "random"])
+def test_dp_kernel_matches_plain_bit_for_bit(cuda_device, name):
+    """K4's full final table equals its plain version's on the card, one
+    launch per item; its front equals the plain version's."""
+    from moip_aira_tpu_torch.solver import kp_front as kf
+    from moip_aira_tpu_torch.solver.cuda_dp import CudaKPDP
+
+    dev = cuda_device
+    if name == "random":
+        arr, cap, S = random_dp_items(3)
+        items = torch.as_tensor(arr, device=dev)
+    else:
+        kp = kf.detect_kp2(read_problem(os.path.join(EX, name)))
+        items, cap, S = kf.dp_items(kp, dev), kp.cap, kf.value_sum(kp)
+    dp = CudaKPDP()
+    got = dp(items, cap, S)
+    want = kf.dp_table_ref(items, cap, S)
+    torch.cuda.synchronize()
+    assert got.device == want.device and got.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert dp.launches == items.shape[1]
+    if name != "random":
+        assert np.array_equal(kf.front_cuda(kp, dev), kf.front_torch(kp, dev))
+
+
+@pytest.mark.cuda
+def test_dp_kernel_refuses_bad_items(cuda_device):
+    from moip_aira_tpu_torch.solver.cuda_dp import CudaKPDP
+
+    arr, cap, S = random_dp_items(0)
+    items = torch.as_tensor(arr, device=cuda_device)
+    dp = CudaKPDP()
+    with pytest.raises(TypeError):
+        dp(items.long(), cap, S)
+    with pytest.raises(ValueError):
+        dp(torch.cat([items, items]).t()[:3], cap, S)
+    bad = items.clone()
+    bad[0, 1] = -1
+    with pytest.raises(ValueError):
+        dp(bad, cap, S)
+    assert dp.launches == 0
