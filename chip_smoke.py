@@ -20,8 +20,12 @@ knapsacks — and fails unless every phase passes:
               status and objective equal;
 4. revised:   K2 against its plain version at 2AP40's LP shape (82 x 1682,
               256 lanes, cold and half-warm) and 2AP100's (202 x 10202, 64
-              lanes, cold): raw outputs equal bit for bit on every lane,
-              then how many lanes certify in f64;
+              lanes, cold): K2 on the first 1, 8 and 64 lanes and on all of
+              them, each launch with the cluster size C its plan picks (at
+              least two sizes in all), raw outputs equal bit for bit to the
+              plain version's rows on every lane, then how many lanes
+              certify in f64; C, the layout and us a pivot (ms over the
+              launch's largest iters);
 5. crossover: K1 and K2 on the same cold lanes at 2AP20's and 2AP40's
               shapes (256 lanes): both times, and equal certified status
               and objective.  Phases 3-5 run the kernels at their wrappers'
@@ -36,7 +40,8 @@ knapsacks — and fails unless every phase passes:
 8. wide:      the full 2AP40 front (n=1600, m=82) through solve_front with
               the engine left to the backend (K2, warm starts on), held
               against its golden: K2 launched once per device wave, K1
-              never, the same bound on re-solves;
+              never, the same bound on re-solves; K2's launches by cluster
+              size;
 9. fragment:  K3 against its plain version on the card at G3KP10's shape
               (256 lanes, F=32), 2AP20's (256 lanes, F=32, cold and half
               warm from the first launch's final bases) and 2AP40's (64
@@ -92,6 +97,9 @@ CLI_INSTANCES = ("G2AP05", "G3AP05", "G3KP10", "KP2D50")
 KERNEL_SHAPES = ("2AP20", "G2AP05")
 #: K2's shapes: (instance, lanes, starts)
 REVISED_SHAPES = (("2AP40", 256, ("cold", "warm")), ("2AP100", 64, ("cold",)))
+#: K2 also runs on the first this many lanes of each shape: a lone lane and
+#: a few take clusters of several blocks, a full batch one block a lane
+REVISED_SUBSETS = (1, 8, 64)
 CROSSOVER_SHAPES = ("2AP20", "2AP40")
 KERNELS = ("dense_simplex", "revised_simplex", "bb_fragment", "kp_dp")
 #: K4's instances: bundled, or generated by utils/generate.kp_lp (seed 1)
@@ -496,14 +504,17 @@ def phase_kernels(seed):
 
 def phase_revised(seed):
     """K2 against revised_lp_batch_ref on the same CUDA inputs, at the
-    shapes the wide front gives it."""
+    shapes the wide front gives it: the plain version once on all of a
+    shape's lanes, K2 on its first 1, 8, 64 and all lanes (a lane's outcome
+    does not depend on its batch), each launch with the cluster size and
+    layout the wrapper's plan picks for its lane count."""
     import numpy as np
     import torch
 
     from moip_aira_tpu_torch.convert import lp_tensors
     from moip_aira_tpu_torch.io import read_problem
     from moip_aira_tpu_torch.solver.cuda_lp import make_cuda_rev_batch
-    from moip_aira_tpu_torch.solver.simplex_torch import OPTIMAL, revised_lp_batch_ref
+    from moip_aira_tpu_torch.solver.simplex_torch import LPOutcome, OPTIMAL, revised_lp_batch_ref
     from moip_aira_tpu_torch.solver.verify import LPVerifier
 
     dev = torch.device("cuda", 0)
@@ -531,42 +542,57 @@ def phase_revised(seed):
         }
         for label in starts:
             wb, wa = starts_wb[label]
-            out_k = k2(ct, lot, hit, wb, wa)
             out_p, plain_ms = events_ms(
                 lambda: revised_lp_batch_ref(k2.W, ct, lot, hit, wb, wa)
             )
-            assert_bitwise(f"K2 {name} {label}", out_k, out_p)
-            st = out_k.status.cpu().numpy()
-            cert = verifier.certify(
-                c, lo, hi, st, out_k.basis.cpu().numpy(),
-                out_k.at_upper.cpu().numpy().astype(bool),
-            )
-            iters = out_k.iters.cpu().numpy()
-            ms = cuda_ms(lambda: k2(ct, lot, hit, wb, wa))
-            bound_ms, bound_by = bound(
-                "revised_simplex", m, n, iters, int((wb[:, 0] >= 0).sum())
-            )
-            row = {
-                "phase": "revised",
-                "kernel": "revised_simplex",
-                "instance": name,
-                "start": label,
-                "m": m,
-                "nc": n + m,
-                "lanes": lanes,
-                "optimal": int((st == OPTIMAL).sum()),
-                "infeasible": int((st == 1).sum()),
-                "cert_ok": int(cert.ok.sum()),
-                "mean_iters": float(iters.mean()),
-                "bitwise_equal": True,
-                "max_abs_err": 0.0,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-            }
-            emit(row)
-            rows.append(row)
+            for sub in sorted({s for s in REVISED_SUBSETS if s < lanes} | {lanes}):
+                args = (ct[:sub], lot[:sub], hit[:sub], wb[:sub], wa[:sub])
+                plan = k2.plan(sub)
+                out_k = k2(*args)
+                assert_bitwise(
+                    f"K2 {name} {label} {sub} lanes (C={plan.C})", out_k,
+                    LPOutcome(*(f[:sub] for f in out_p)),
+                )
+                st = out_k.status.cpu().numpy()
+                cert = verifier.certify(
+                    c[:sub], lo[:sub], hi[:sub], st, out_k.basis.cpu().numpy(),
+                    out_k.at_upper.cpu().numpy().astype(bool),
+                )
+                iters = out_k.iters.cpu().numpy()
+                ms = cuda_ms(lambda: k2(*args))
+                bound_ms, bound_by = bound(
+                    "revised_simplex", m, n, iters, int((wb[:sub, 0] >= 0).sum())
+                )
+                row = {
+                    "phase": "revised",
+                    "kernel": "revised_simplex",
+                    "instance": name,
+                    "start": label,
+                    "m": m,
+                    "nc": n + m,
+                    "lanes": sub,
+                    "C": plan.C,
+                    "layout": plan.layout,
+                    "threads": plan.threads,
+                    "optimal": int((st == OPTIMAL).sum()),
+                    "infeasible": int((st == 1).sum()),
+                    "cert_ok": int(cert.ok.sum()),
+                    "mean_iters": float(iters.mean()),
+                    "max_iters": int(iters.max()),
+                    "us_per_pivot": 1e3 * ms / max(1, int(iters.max())),
+                    "bitwise_equal": True,
+                    "max_abs_err": 0.0,
+                    "ms": ms,
+                    # the plain version ran once, on all of the shape's lanes
+                    "plain_ms": plain_ms,
+                    "plain_lanes": lanes,
+                    "bound_ms": bound_ms,
+                    "bound_by": bound_by,
+                }
+                emit(row)
+                rows.append(row)
+    if len({r["C"] for r in rows}) < 2:
+        raise AssertionError(f"K2 launched one cluster size only: {sorted({r['C'] for r in rows})}")
     return rows
 
 
@@ -871,6 +897,8 @@ def phase_front(phase, name, kernel):
         "lps": be.lp_count,
         "verify_fallbacks": be.verify_fallbacks,
         "launches": launches[kernel],
+        # K2's launches by cluster size
+        "cluster_sizes": dict(getattr(be.lp_kernel, "cluster_sizes", {})),
         "host_spans_seconds": spans,
         "golden": True,
     }
@@ -1239,7 +1267,8 @@ def main() -> int:
 
     def entry(name, replaces, rows, main, shape):
         row = next(
-            r for r in rows if r["instance"] == shape and r["start"] == "cold"
+            r for r in rows
+            if r["instance"] == shape and r["start"] == "cold" and r["lanes"] == LANES
         )
         # no single PyTorch call computes a batched simplex or a B&B subtree
         return {

@@ -110,7 +110,8 @@ __device__ __forceinline__ int pack_word(const unsigned char* atup, int nc,
 }
 
 template <int LAYOUT>
-__global__ void __launch_bounds__(MAX_THREADS)
+// the register budget of one 512-thread block an SM (128 a thread)
+__global__ void __launch_bounds__(MAX_THREADS, 1)
     bb_fragment_kernel(const float* __restrict__ W,
                        const float* __restrict__ intm, int m, int n,
                        const float* __restrict__ c_g,
@@ -129,10 +130,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
                        int* __restrict__ lgb_o, int* __restrict__ lga_o,
                        int* __restrict__ fb_o, int* __restrict__ fa_o) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ Scratch red;
+  __shared__ RevScratch rs;
   __shared__ int s_mode, s_lpstat, s_restart, s_stall, s_niter, s_titer,
       s_ticks, s_ncnt, s_depth, s_lstate, s_rec, s_adopt;
-  __shared__ float s_lobj, s_best, s_sum, s_dq;
+  __shared__ float s_lobj, s_best, s_sum;
 
   const int nc = n + m;
   const int pw = (nc + PACK - 1) / PACK;
@@ -234,7 +235,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
   const RevLane L{m,  n,   nc,    W,     c,      clo, chi,   BI,
                   xB, bl,  bh,    cB,    cB1,    y,   alpha, ratio,
-                  rowdiv, wq, basis, hits_up, inb, atup, &red};
+                  rowdiv, wq, basis, hits_up, inb, atup, &rs};
 
   // the node bounds change on one column at a time: thread 0 writes them
   // and their basic-row mirrors
@@ -332,8 +333,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
       phase1 = infeas_sum > feas_tol;
     }
     if (s_mode == MODE_PIVOT && s_lpstat == RUNNING) {
-      const RevStep st = rev_pivot(L, phase1, s_stall >= STALL_LIMIT, feas_tol,
-                                   cost_tol, pivot_tol, &s_dq);
+      const RevStep st =
+          rev_pivot<false>(L, rev_whole(L), phase1, s_stall >= STALL_LIMIT,
+                           feas_tol, cost_tol, pivot_tol, 0, false);
       if (tid == 0) {
         if (st.do_pivot) cIb[st.r] = intm[st.q];
         const float cur = phase1 ? infeas_sum : rev_basic_objective(L);

@@ -1,18 +1,53 @@
 // The revised-simplex core shared by K2 (revised_simplex.cu, one LP per
-// block) and K3 (bb_fragment.cu, a B&B subtree per block): the warm-basis
-// rebuild, the basic solution, and the sub-steps of one pivot.  Each
-// function is called by every thread of the block; results that all threads
-// need come back through shared memory, so the whole block takes the same
-// branch.  Every sum runs in index order with each product and each sum
-// rounded on its own (__fmul_rn, __fadd_rn), as the plain PyTorch versions
+// thread-block cluster) and K3 (bb_fragment.cu, a B&B subtree per block):
+// the warm-basis rebuild, the basic solution, and the sub-steps of one
+// pivot.  Each function is called by every thread of the block; results that
+// all threads need come back through shared memory or a reduction that hands
+// every thread the same value, so the whole block takes the same branch.
+// Every sum runs in index order with each product and each sum rounded on
+// its own (__fmul_rn, __fadd_rn), as the plain PyTorch versions
 // (simplex_torch.revised_lp_batch_ref, bb_torch.fragment_batch_ref) compute
 // them, so kernel and plain version take the same pivots bit for bit.
+//
+// Pricing may be split by columns across the blocks of a cluster
+// (RevSplit): each block prices its own column range and the blocks' winners
+// are combined through distributed shared memory.  Everything else a pivot
+// does is m-sized and every block of the cluster repeats it identically, so
+// each block keeps its own B^-1.  K3 prices the whole range in a cluster of
+// one (rev_whole).
 
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "simplex_common.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
+
+// warps of the largest block K2 and K3 launch (512 threads)
+constexpr int MAX_REV_WARPS = 16;
+
+// A pricing winner: score, column, its reduced cost, and whether any column
+// was eligible.  Also a block's entry in its cluster's mailbox.
+struct RevCand {
+  float v;
+  int i;
+  float d;
+  int any;
+};
+
+// Each warp's partial result of the pivot's three block reductions, one
+// array per reduction so that no two consecutive ones share storage; `red`
+// serves rev_warm_rebuild.
+struct RevScratch {
+  Scratch red;
+  RevCand pc[MAX_REV_WARPS];  // pricing
+  float mv[MAX_REV_WARPS];    // least ratio
+  float rv[MAX_REV_WARPS];    // leaving row: score
+  int ri[MAX_REV_WARPS];      // leaving row: index
+};
 
 // A lane's revised-simplex state.  W is the shared system (m x nc, global);
 // c, lo and hi the lane's costs and the bounds its pricing sees; BI its
@@ -38,7 +73,7 @@ struct RevLane {
   int* hits_up;
   unsigned char* inb;
   unsigned char* atup;
-  Scratch* red;
+  RevScratch* rs;
 };
 
 // One pivot's outcome, the same in every thread.
@@ -49,6 +84,108 @@ struct RevStep {
   bool do_pivot;
   bool do_flip;
 };
+
+// This block's share of pricing: the columns [j0, j1) of W, with the slice
+// in shared memory (row k at ws + k * ld, column j at j - j0) or, when ws is
+// null, read from W.  Block `rank` of a cluster of csize owns columns
+// [rank * ld, rank * ld + ld), so column q lives in block q / ld.  `mail`
+// is this block's two mailboxes (pivots alternate between them).
+struct RevSplit {
+  int j0, j1, ld;
+  const float* ws;
+  int csize;
+  RevCand* mail;
+};
+
+// the whole row in one block, read from W: K3's pricing
+__device__ __forceinline__ RevSplit rev_whole(const RevLane& L) {
+  return RevSplit{0, L.nc, L.nc, nullptr, 1, nullptr};
+}
+
+// ---- reductions that hand every thread the same result -------------------
+// Each warp reduces towards lane 0 and broadcasts lane 0's value, so every
+// lane holds the same winner; every warp then reduces the same per-warp
+// partials the same way.  One barrier each.
+
+__device__ __forceinline__ void warp_cand(RevCand& a) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(0xffffffffu, a.v, off);
+    const int oi = __shfl_down_sync(0xffffffffu, a.i, off);
+    const float od = __shfl_down_sync(0xffffffffu, a.d, off);
+    const int oa = __shfl_down_sync(0xffffffffu, a.any, off);
+    if (beats(ov, oi, a.v, a.i)) {
+      a.v = ov;
+      a.i = oi;
+      a.d = od;
+    }
+    a.any |= oa;
+  }
+  a.v = __shfl_sync(0xffffffffu, a.v, 0);
+  a.i = __shfl_sync(0xffffffffu, a.i, 0);
+  a.d = __shfl_sync(0xffffffffu, a.d, 0);
+  a.any = __shfl_sync(0xffffffffu, a.any, 0);
+}
+
+__device__ RevCand rev_block_cand(RevCand a, RevCand* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  warp_cand(a);
+  if (lane == 0) part[warp] = a;
+  __syncthreads();
+  RevCand b{-INFINITY, INT_MAX, 0.0f, 0};
+  if (lane < nw) b = part[lane];
+  warp_cand(b);
+  return b;
+}
+
+__device__ float rev_block_min(float v, float* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int off = 16; off > 0; off >>= 1)
+    v = fminf(v, __shfl_down_sync(0xffffffffu, v, off));
+  v = __shfl_sync(0xffffffffu, v, 0);
+  if (lane == 0) part[warp] = v;
+  __syncthreads();
+  float b = lane < nw ? part[lane] : INFINITY;
+  for (int off = 16; off > 0; off >>= 1)
+    b = fminf(b, __shfl_down_sync(0xffffffffu, b, off));
+  return __shfl_sync(0xffffffffu, b, 0);
+}
+
+__device__ void rev_block_argmax(float& v, int& i, float* pv, int* pi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  warp_argmax(v, i);
+  if (lane == 0) {
+    pv[warp] = v;
+    pi[warp] = i;
+  }
+  __syncthreads();
+  v = lane < nw ? pv[lane] : -INFINITY;
+  i = lane < nw ? pi[lane] : INT_MAX;
+  warp_argmax(v, i);
+  v = __shfl_sync(0xffffffffu, v, 0);
+  i = __shfl_sync(0xffffffffu, i, 0);
+}
+
+// The cluster's winner from each block's: every block posts its winner in
+// its mailbox, and after the cluster barrier every warp reads the csize
+// mailboxes (distributed shared memory) and reduces them alike.  `beats` is
+// a total order on (score, column), so this is the whole row's arg-max.
+// Two mailboxes alternate: a block posts into one only after the barrier
+// of the pivot in between, which every reader of its last contents passed.
+__device__ RevCand rev_cluster_cand(RevCand win, const RevSplit& S,
+                                    int parity) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) S.mail[parity] = win;
+  cluster.sync();
+  const int lane = threadIdx.x & 31;
+  RevCand b{-INFINITY, INT_MAX, 0.0f, 0};
+  if (lane < S.csize)
+    b = *cluster.map_shared_rank(S.mail + parity, (unsigned)lane);
+  warp_cand(b);
+  return b;
+}
 
 // Warm start: gather the basis columns W[:, wb[t]] into P1 (m x m) and turn
 // [P1 | -I] (BI holds -I on entry) into [I | -B^-1] by Gauss-Jordan, each
@@ -84,7 +221,7 @@ __device__ bool rev_warm_rebuild(const RevLane& L, const int* wb, float* P1,
         arg = e;
       }
     }
-    block_argmax(best, arg, L.red);
+    block_argmax(best, arg, &L.rs->red);
     if (!(best > GJ_PIVOT_TOL)) {
       ok = false;
       break;
@@ -141,18 +278,24 @@ __device__ void rev_basic_solution(const RevLane& L, const float* z) {
   __syncthreads();
 }
 
+// row i's share of the phase-1 infeasibility, and its phase-1 cost
+__device__ __forceinline__ float rev_row_infeasibility(const RevLane& L, int i,
+                                                       float feas_tol,
+                                                       float* cost) {
+  const float x = L.xB[i], l = L.bl[i], h = L.bh[i];
+  const bool below = x < l - feas_tol, above = x > h + feas_tol;
+  *cost = below ? -1.0f : (above ? 1.0f : 0.0f);
+  return __fadd_rn(below ? l - x : 0.0f, above ? x - h : 0.0f);
+}
+
 // Phase-1 infeasibility of the basic solution: each row's share in ratio[]
 // (until the ratio test overwrites it), the phase-1 costs in cB1[], and
 // their in-order sum, returned to every thread through *s_sum.
 __device__ float rev_infeasibility(const RevLane& L, float feas_tol,
                                    float* s_sum) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < L.m; i += nt) {
-    const float x = L.xB[i], l = L.bl[i], h = L.bh[i];
-    const bool below = x < l - feas_tol, above = x > h + feas_tol;
-    L.ratio[i] = __fadd_rn(below ? l - x : 0.0f, above ? x - h : 0.0f);
-    L.cB1[i] = below ? -1.0f : (above ? 1.0f : 0.0f);
-  }
+  for (int i = tid; i < L.m; i += nt)
+    L.ratio[i] = rev_row_infeasibility(L, i, feas_tol, &L.cB1[i]);
   __syncthreads();
   if (tid == 0) *s_sum = seq_sum(L.ratio, L.m);
   __syncthreads();
@@ -168,13 +311,123 @@ __device__ float rev_basic_objective(const RevLane& L) {
   return cur;
 }
 
-// One iteration of the bounded revised simplex after rev_infeasibility:
-// pricing, the entering column, the ratio test with bound flips, and the
-// step (the rank-1 update of B^-1 and the basis bookkeeping) unless the LP
-// ended.  *s_dq is a shared float for the entering column's reduced cost.
-__device__ RevStep rev_pivot(const RevLane& L, bool phase1, bool bland,
-                             float feas_tol, float cost_tol, float pivot_tol,
-                             float* s_dq) {
+// What a pivot of K2 needs before pricing, behind one barrier, while the
+// phase is not yet known: y for both phases -- c_B^T B^-1 into y, and
+// cB1^T B^-1 with the phase-1 costs taken inline into alpha (free until the
+// entering column) -- the in-order phase-1 sum into *s_sum and, when
+// want_obj, c_B^T x_B into *s_obj.  Work item k runs on thread k mod nt:
+// items [0, m) and [m, 2m) are the two y's, item pad (the first warp after
+// them) the phase-1 sum, item pad + 32 the objective, so with nt > pad + 32
+// the two serial sums have warps of their own and all four run side by
+// side.  rev_pivot(..., y_ready = true) then prices with the y of the
+// phase.
+__device__ void rev_pivot_start(const RevLane& L, float feas_tol,
+                                bool want_obj, float* s_sum, float* s_obj) {
+  const int tid = threadIdx.x, nt = blockDim.x, m = L.m;
+  const int pad = 32 * ((2 * m + 31) / 32);
+  float cost;
+  for (int k = tid; k < 2 * m; k += nt) {
+    const int j = k < m ? k : k - m;
+    float acc = 0.0f;
+    if (k < m) {
+      for (int i = 0; i < m; ++i)
+        acc = __fadd_rn(acc, __fmul_rn(L.cB[i], L.BI[i * m + j]));
+      L.y[j] = acc;
+    } else {
+      for (int i = 0; i < m; ++i) {
+        rev_row_infeasibility(L, i, feas_tol, &cost);
+        acc = __fadd_rn(acc, __fmul_rn(cost, L.BI[i * m + j]));
+      }
+      L.alpha[j] = acc;
+    }
+  }
+  if (tid == pad % nt) {
+    float acc = 0.0f;
+    for (int i = 0; i < m; ++i)
+      acc = __fadd_rn(acc, rev_row_infeasibility(L, i, feas_tol, &cost));
+    *s_sum = acc;
+  }
+  if (want_obj && tid == (pad + 32) % nt) *s_obj = rev_basic_objective(L);
+  __syncthreads();
+}
+
+// Price U columns at once, column base + u * nt of the slice for u < U: U
+// independent chains of m multiply-adds, k the outer loop, so the loads and
+// adds of U columns are in flight together; each chain sums in index order.
+template <int U, bool W_SMEM>
+__device__ __forceinline__ void rev_price_cols(const RevLane& L,
+                                               const RevSplit& S,
+                                               const float* yv, int base,
+                                               bool phase1, bool bland,
+                                               float cost_tol, RevCand& best) {
+  const int nt = blockDim.x, m = L.m;
+  // column base + u nt of row k at p0 + k pitch + u nt: one base pointer
+  // (an array of per-column pointers went to local memory)
+  const float* p0 = W_SMEM ? S.ws + base : L.W + S.j0 + base;
+  const int pitch = W_SMEM ? S.ld : L.nc;
+  float acc[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) acc[u] = 0.0f;
+  for (int k = 0; k < m; ++k) {
+    const float yk = yv[k];
+    const float* row = p0 + (size_t)k * pitch;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      acc[u] = __fadd_rn(acc[u], __fmul_rn(yk, row[u * nt]));
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = S.j0 + base + u * nt;
+    float dj = -acc[u];
+    if (!phase1) dj = __fadd_rn(dj, L.c[j]);
+    const bool nb = !L.inb[j], at = L.atup[j] != 0;
+    const bool fr = !isfinite(L.lo[j]) && !isfinite(L.hi[j]);
+    const bool el = nb && (((!at || fr) && dj < -cost_tol) ||
+                           ((at || fr) && dj > cost_tol));
+    best.any |= el;
+    const float sc =
+        bland ? (el ? -(float)j : -BIG) : (el ? fabsf(dj) : -1.0f);
+    if (beats(sc, j, best.v, best.i)) {
+      best.v = sc;
+      best.i = j;
+      best.d = dj;
+    }
+  }
+}
+
+// This thread's best column of the block's slice against yv: its columns
+// tid, tid + nt, ... priced four, then two, then one at a time.
+template <bool W_SMEM>
+__device__ RevCand rev_price(const RevLane& L, const RevSplit& S,
+                             const float* yv, bool phase1, bool bland,
+                             float cost_tol) {
+  const int nt = blockDim.x;
+  const int w = S.j1 - S.j0;
+  RevCand best{-INFINITY, INT_MAX, 0.0f, 0};
+  int base = threadIdx.x;
+  for (; base + 3 * nt < w; base += 4 * nt)
+    rev_price_cols<4, W_SMEM>(L, S, yv, base, phase1, bland, cost_tol, best);
+  if (base + nt < w) {
+    rev_price_cols<2, W_SMEM>(L, S, yv, base, phase1, bland, cost_tol, best);
+    base += 2 * nt;
+  }
+  if (base < w)
+    rev_price_cols<1, W_SMEM>(L, S, yv, base, phase1, bland, cost_tol, best);
+  return best;
+}
+
+// One iteration of the bounded revised simplex after the phase-1 costs
+// (rev_infeasibility) or, with y_ready, after rev_pivot_start: y unless
+// y_ready, pricing (this block's columns, combined across the cluster), the
+// entering column, the ratio test with bound flips, and the step (the
+// rank-1 update of B^-1 and the basis bookkeeping) unless the LP ended.
+// `parity` picks the cluster mailbox (alternate it from pivot to pivot).
+// Four block barriers after y, and one cluster barrier when the cluster has
+// more than one block.
+template <bool W_SMEM>
+__device__ RevStep rev_pivot(const RevLane& L, const RevSplit& S, bool phase1,
+                             bool bland, float feas_tol, float cost_tol,
+                             float pivot_tol, int parity, bool y_ready) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int m = L.m, nc = L.nc, mm = m * m;
   const float* W = L.W;
@@ -185,49 +438,44 @@ __device__ RevStep rev_pivot(const RevLane& L, bool phase1, bool bland,
   float* xB = L.xB;
   float* bl = L.bl;
   float* bh = L.bh;
-  const float* cBe = phase1 ? L.cB1 : L.cB;
-
-  // y = cB_eff^T B^-1: one column of B^-1 per thread
-  for (int j = tid; j < m; j += nt) {
-    float acc = 0.0f;
-    for (int i = 0; i < m; ++i)
-      acc = __fadd_rn(acc, __fmul_rn(cBe[i], BI[i * m + j]));
-    L.y[j] = acc;
-  }
-  __syncthreads();
-
-  // pricing d = c - y W: one column of W per thread
-  float best = -INFINITY, best_d = 0.0f;
-  int q = INT_MAX;
-  bool any = false;
-  for (int j = tid; j < nc; j += nt) {
-    float acc = 0.0f;
-    for (int k = 0; k < m; ++k)
-      acc = __fadd_rn(acc, __fmul_rn(L.y[k], W[(size_t)k * nc + j]));
-    float dj = -acc;
-    if (!phase1) dj = __fadd_rn(dj, c[j]);
-    const bool nb = !L.inb[j], at = L.atup[j] != 0;
-    const bool fr = !isfinite(lo[j]) && !isfinite(hi[j]);
-    const bool el = nb && (((!at || fr) && dj < -cost_tol) ||
-                           ((at || fr) && dj > cost_tol));
-    any |= el;
-    const float sc = bland ? (el ? -(float)j : -BIG) : (el ? fabsf(dj) : -1.0f);
-    if (beats(sc, j, best, q)) {
-      best = sc;
-      q = j;
-      best_d = dj;
+  const float* yv = L.y;
+  if (!y_ready) {
+    // y = cB_eff^T B^-1: one column of B^-1 per thread
+    const float* cBe = phase1 ? L.cB1 : L.cB;
+    for (int j = tid; j < m; j += nt) {
+      float acc = 0.0f;
+      for (int i = 0; i < m; ++i)
+        acc = __fadd_rn(acc, __fmul_rn(cBe[i], BI[i * m + j]));
+      L.y[j] = acc;
     }
+    __syncthreads();
+  } else if (phase1) {
+    yv = L.alpha;  // rev_pivot_start's phase-1 y
   }
-  const int my_q = q;
-  const bool any_elig = __syncthreads_or(any);
-  block_argmax(best, q, L.red);
-  if (my_q == q) *s_dq = best_d;  // the thread that priced column q
-  for (int k = tid; k < m; k += nt) L.wq[k] = W[(size_t)k * nc + q];
+
+  // pricing d = c - y W over this block's columns, then the cluster's winner
+  RevCand win = rev_block_cand(
+      rev_price<W_SMEM>(L, S, yv, phase1, bland, cost_tol), L.rs->pc);
+  if (S.csize > 1) win = rev_cluster_cand(win, S, parity);
+  const int q = win.i;
+  const float dq = win.d;
+  const bool any_elig = win.any != 0;
+  // W[:, q] from the slice of the block that owns q, else from W
+  if (W_SMEM) {
+    const int owner = q / S.ld;
+    const float* src = S.ws;
+    if (S.csize > 1)
+      src = cg::this_cluster().map_shared_rank(const_cast<float*>(S.ws),
+                                               (unsigned)owner);
+    const int jq = q - owner * S.ld;
+    for (int k = tid; k < m; k += nt) L.wq[k] = src[(size_t)k * S.ld + jq];
+  } else {
+    for (int k = tid; k < m; k += nt) L.wq[k] = W[(size_t)k * nc + q];
+  }
   __syncthreads();
 
   // entering column alpha = B^-1 W[:, q] and the ratio test: one row per
   // thread
-  const float dq = *s_dq;
   const bool fr_q = !isfinite(lo[q]) && !isfinite(hi[q]);
   const bool up_q = !L.inb[q] && (!L.atup[q] || fr_q) && dq < -cost_tol;
   const float sigma = up_q ? 1.0f : -1.0f;
@@ -260,7 +508,8 @@ __device__ RevStep rev_pivot(const RevLane& L, bool phase1, bool bland,
     L.hits_up[i] = hu;
     rpart = fminf(rpart, rt);
   }
-  const float rmin = block_min(rpart, L.red);
+  const float rmin = rev_block_min(rpart, L.rs->mv);
+  // the rows this thread wrote above: no barrier needed to read them
   float pbest = -INFINITY;
   int r = INT_MAX;
   for (int i = tid; i < m; i += nt) {
@@ -272,7 +521,7 @@ __device__ RevStep rev_pivot(const RevLane& L, bool phase1, bool bland,
       r = i;
     }
   }
-  block_argmax(pbest, r, L.red);
+  rev_block_argmax(pbest, r, L.rs->rv, L.rs->ri);
 
   // the step, decided identically by every thread from shared state
   const float lo_q = lo[q], hi_q = hi[q];
@@ -294,15 +543,26 @@ __device__ RevStep rev_pivot(const RevLane& L, bool phase1, bool bland,
   const int p_col = L.basis[r];
   const bool leave_up = L.hits_up[r] != 0;
 
-  if (do_pivot) {
-    // product-form update: divide by safe_piv, eliminate with piv - 1
-    const float safe_piv = fabsf(piv) > PIVOT_FLOOR ? piv : 1.0f;
+  // product-form update: divide by safe_piv, eliminate with piv - 1
+  const float safe_piv = fabsf(piv) > PIVOT_FLOOR ? piv : 1.0f;
+  if (do_pivot)
     for (int j = tid; j < m; j += nt) L.rowdiv[j] = BI[r * m + j] / safe_piv;
-    __syncthreads();
+  // rowdiv is ready, and every thread has read basis[r], atup[q], ... above,
+  // so thread 0's bookkeeping below races with nothing
+  __syncthreads();
+  if (do_pivot) {
+    // element e = i m + j, stepped by nt without a division per element
+    const int di = nt / m, dj = nt - (nt / m) * m;
+    int i = tid / m, j = tid - (tid / m) * m;
     for (int e = tid; e < mm; e += nt) {
-      const int i = e / m, j = e - (e / m) * m;
       const float cv = i == r ? piv - 1.0f : L.alpha[i];
       BI[e] = __fsub_rn(BI[e], __fmul_rn(cv, L.rowdiv[j]));
+      i += di;
+      j += dj;
+      if (j >= m) {
+        j -= m;
+        ++i;
+      }
     }
   }
   if (do_pivot || do_flip) {
@@ -314,7 +574,6 @@ __device__ RevStep rev_pivot(const RevLane& L, bool phase1, bool bland,
                   : __fadd_rn(xB[i], __fmul_rn(-sigma * L.alpha[i], theta));
     }
   }
-  __syncthreads();  // every thread is done with basis[r], atup[q], ...
   if (tid == 0) {
     if (do_flip) L.atup[q] = !atq;
     if (do_pivot) {

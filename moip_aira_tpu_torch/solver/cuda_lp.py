@@ -9,7 +9,9 @@
   ``csrc/revised_simplex.cu``, plain version
   ``simplex_torch.revised_lp_batch_ref``, wrapper ``make_cuda_rev_batch``.
 
-Both kernels run one thread block per LP lane.  Each wrapper returns a
+K1 runs one thread block per LP lane; K2 one cluster of C blocks per lane,
+C and the shared-memory layout chosen per launch by ``rev_launch_plan``.
+Each wrapper returns a
 callable with the unpacked contract of the Pallas builders
 (``pack=False``): ``(c, lo, hi, wb, wa) -> LPOutcome(status, obj, x, basis,
 at_upper, iters)``.
@@ -22,6 +24,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
+from dataclasses import dataclass
 
 import torch
 
@@ -66,18 +70,135 @@ def _dense_simplex_lib() -> ctypes.CDLL:
 def _revised_simplex_lib() -> ctypes.CDLL:
     lib = load("revised_simplex")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.revised_simplex_layout.argtypes = [ci, ci]
-    lib.revised_simplex_layout.restype = ci
+    pi = ctypes.POINTER(ci)
+    lib.revised_simplex_device_limits.argtypes = [pi, pi]
+    lib.revised_simplex_device_limits.restype = ci
+    lib.revised_simplex_smem_bytes.argtypes = [ci] * 6
+    lib.revised_simplex_smem_bytes.restype = ctypes.c_longlong
+    lib.revised_simplex_max_clusters.argtypes = [ci] * 7
+    lib.revised_simplex_max_clusters.restype = ci
     lib.revised_simplex_launch.argtypes = [
         vp, ci, ci, ci,  # W, m, n, batch
         vp, vp, vp, vp, vp,  # c, lo, hi, wb, wa
         ci, cf, cf, cf,  # max_iters, feas_tol, cost_tol, pivot_tol
+        ci, ci, ci, ci, ci,  # the plan: C, threads, W, B^-1, P1 in smem
         vp, vp, vp,  # B^-1, P1 and z scratch
         vp, vp, vp, vp, vp, vp,  # status, obj, x, basis, at_upper, iters
         vp,  # stream
     ]
     lib.revised_simplex_launch.restype = ci
     return lib
+
+
+# K2's limits, as csrc/revised_simplex.cu and csrc/simplex_common.cuh set
+# them: threads a block, blocks a cluster (the portable cluster size), float
+# vectors of m entries a lane, and the static shared bytes set aside beside
+# the dynamic part
+REV_MAX_THREADS = 512
+REV_MAX_CLUSTER = 8
+REV_ROW_VECTORS = 10
+STATIC_SMEM_RESERVE = 1024
+#: the fewest columns a block of a split lane prices: four warps' worth, so
+#: that a block is not left mostly idle in pricing (a bound, not measured)
+REV_MIN_SLICE = 128
+
+
+def rev_smem_bytes(m: int, nc: int, C: int, w_smem: bool, bi_smem: bool,
+                   p1_smem: bool) -> int:
+    """A K2 block's dynamic shared bytes: the per-row and per-column vectors
+    (16-byte aligned), plus B^-1 and P1 (m x m floats each) and the block's
+    slice of W (m x ceil(nc / C) floats) where the plan keeps them there
+    (``rev_smem_bytes`` of csrc/revised_simplex.cu)."""
+    vec = 4 * REV_ROW_VECTORS * m + 4 * 2 * m + 2 * nc + 2 * m
+    vec = (vec + 15) & ~15
+    square = 4 * m * m
+    width = -(-nc // C)
+    return (vec + (square if bi_smem else 0) + (square if p1_smem else 0)
+            + (4 * m * width if w_smem else 0))
+
+
+@dataclass(frozen=True)
+class RevPlan:
+    """One K2 launch: C blocks of ``threads`` threads per lane, and which of
+    the block's W slice, B^-1 and warm block P1 sit in shared memory."""
+
+    m: int
+    nc: int
+    C: int
+    threads: int
+    w_smem: bool
+    bi_smem: bool
+    p1_smem: bool
+
+    @property
+    def width(self) -> int:
+        """Columns a block owns: block r prices [r * width, r * width +
+        width), cut at nc."""
+        return -(-self.nc // self.C)
+
+    @property
+    def slices(self) -> tuple:
+        w = self.width
+        return tuple((min(self.nc, r * w), min(self.nc, r * w + w)) for r in range(self.C))
+
+    @property
+    def smem_bytes(self) -> int:
+        return rev_smem_bytes(self.m, self.nc, self.C, self.w_smem, self.bi_smem, self.p1_smem)
+
+    @property
+    def layout(self) -> str:
+        """What shared memory holds, e.g. "B^-1+W+P1"; "-" for nothing."""
+        parts = [n for n, on in (("B^-1", self.bi_smem), ("W", self.w_smem), ("P1", self.p1_smem)) if on]
+        return "+".join(parts) or "-"
+
+
+def rev_launch_plan(m: int, n: int, lanes: int, smem_bytes: int, sms: int) -> RevPlan:
+    """K2's launch for ``lanes`` LPs of m rows and n structural columns on a
+    card of ``sms`` SMs whose blocks may opt into ``smem_bytes`` of shared
+    memory.
+
+    C, the blocks of a lane's cluster, is a power of two up to 8 that leaves
+    each block at least REV_MIN_SLICE columns.  Within that: the smallest C
+    whose W slice fits in shared memory beside B^-1, while the launch still
+    has an SM for each of its blocks (pricing from shared memory makes more
+    blocks worth little more than their cluster barrier); else the largest
+    C that keeps every block of the launch on an SM of its own (lanes * C
+    <= sms; pricing then streams W from L2, and each block adds an SM's
+    share of it).  Measured on the H100 (tools/k2_cluster_bench.py --sweep;
+    PERF.md, PR 5), this picks the fastest C or one within 6% of it: 2AP40
+    takes 4 for 1 and 8 lanes, 2 for 64 and 1 for 256; 2AP100 8 for 1 and 8
+    lanes, 2 for 64 and 1 for 256.  Shared memory takes B^-1 first (every
+    pivot reads it three times), then the block's W slice (pricing reads it
+    once), then the warm block P1 (one rebuild a launch); what does not fit
+    stays in global memory.  Raises ValueError when not even the per-row
+    and per-column vectors fit."""
+    nc = n + m
+    lanes = max(lanes, 1)
+    sizes = [C for C in (1, 2, 4, 8) if C == 1 or -(-nc // C) >= REV_MIN_SLICE]
+    fits = [C for C in sizes if rev_plan_for(m, n, C, smem_bytes).w_smem]
+    if fits and lanes * fits[0] <= sms:
+        C = fits[0]
+    else:
+        C = max(C for C in sizes if C == 1 or lanes * C <= sms)
+    return rev_plan_for(m, n, C, smem_bytes)
+
+
+def rev_plan_for(m: int, n: int, C: int, smem_bytes: int) -> RevPlan:
+    """K2's launch with clusters of C blocks: the shared-memory layout and
+    the block size of ``rev_launch_plan`` for that C."""
+    nc = n + m
+    cap = smem_bytes - STATIC_SMEM_RESERVE
+    if rev_smem_bytes(m, nc, 1, False, False, False) > cap:
+        raise ValueError(f"K2 cannot take an LP of {m} rows and {nc} columns")
+    bi = rev_smem_bytes(m, nc, C, False, True, False) <= cap
+    w = bi and rev_smem_bytes(m, nc, C, True, True, False) <= cap
+    p1 = bi and rev_smem_bytes(m, nc, C, w, True, True) <= cap
+    width = -(-nc // C)
+    # a thread per column of the slice, the warps rev_pivot_start needs to
+    # run both y's (2 m threads) and its two serial sums side by side, and
+    # at most eight elements of B^-1 a thread in the rank-1 update
+    want = max(width, 32 * (-(-2 * m // 32) + 2), -(-m * m // 8))
+    return RevPlan(m, nc, C, min(REV_MAX_THREADS, 32 * -(-want // 32)), w, bi, p1)
 
 
 class CudaLPBatch:
@@ -190,12 +311,51 @@ class CudaLPBatch:
 
 class CudaRevBatch(CudaLPBatch):
     """K2, the revised simplex: the same contract, checks and counter as
-    K1's ``CudaLPBatch``."""
+    K1's ``CudaLPBatch``, one cluster of blocks per lane as
+    ``rev_launch_plan`` says.  ``cluster_sizes`` counts this object's
+    launches by C."""
 
     kernel = "revised_simplex"
     plain = staticmethod(revised_lp_batch_ref)
 
-    def _launch(self, c, lo, hi, wb, wa) -> LPOutcome:
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.cluster_sizes: Counter = Counter()
+
+    @functools.cached_property
+    def device_limits(self) -> tuple:
+        """(shared bytes a block may opt into, SMs) of this object's card."""
+        lib = _revised_simplex_lib()
+        smem, sms = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(self.device):
+            err = lib.revised_simplex_device_limits(ctypes.byref(smem), ctypes.byref(sms))
+        if err != 0:
+            raise RuntimeError(f"K2: reading the card's limits failed: CUDA error {err}")
+        return smem.value, sms.value
+
+    def plan(self, lanes: int) -> RevPlan:
+        """The launch ``rev_launch_plan`` picks for ``lanes`` lanes here."""
+        return rev_launch_plan(self.m, self.n, lanes, *self.device_limits)
+
+    def max_clusters(self, plan: RevPlan) -> int:
+        """How many clusters of ``plan`` the card holds at once."""
+        got = _revised_simplex_lib().revised_simplex_max_clusters(
+            self.m, self.n, plan.C, plan.threads,
+            int(plan.w_smem), int(plan.bi_smem), int(plan.p1_smem),
+        )
+        if got < 0:
+            raise RuntimeError(f"K2: occupancy of {plan} failed: CUDA error {-got}")
+        return got
+
+    def run(self, c, lo, hi, wb, wa, plan: RevPlan) -> LPOutcome:
+        """Launch K2 with the given plan instead of the chosen one (to
+        measure plans against each other); CUDA tensors only."""
+        self._check(c, lo, hi, wb, wa)
+        if c.device.type != "cuda":
+            raise ValueError("a launch plan needs CUDA tensors")
+        return self._launch(c, lo, hi, wb, wa, plan)
+
+    def _launch(self, c, lo, hi, wb, wa, plan=None) -> LPOutcome:
         lib = _revised_simplex_lib()
         m, n = self.m, self.n
         B = c.shape[0]
@@ -204,16 +364,23 @@ class CudaRevBatch(CudaLPBatch):
         status, obj, x, basis, at_upper, iters = out
         if B == 0:
             return out
-        layout = lib.revised_simplex_layout(m, n)
-        if layout < 0:
-            raise ValueError(f"K2 cannot take an LP of {m} rows and {n + m} columns")
+        if plan is None:
+            plan = self.plan(B)
+        if (plan.m, plan.nc) != (m, n + m):
+            raise ValueError(f"{plan} is not a plan for {m} rows and {n + m} columns")
+        kb = lib.revised_simplex_smem_bytes(
+            m, n, plan.C, int(plan.w_smem), int(plan.bi_smem), int(plan.p1_smem)
+        )
+        if kb != plan.smem_bytes:
+            raise RuntimeError(f"K2 counts {kb} shared bytes for {plan}, the plan {plan.smem_bytes}")
+        blocks = B * plan.C
 
         def square():
-            return torch.empty(B, m, m, dtype=torch.float32, device=dev)
+            return torch.empty(blocks, m, m, dtype=torch.float32, device=dev)
 
-        bi_scratch = square() if layout < 1 else None
-        p1_scratch = square() if layout < 2 else None
-        z_scratch = torch.empty(B, n + m, dtype=torch.float32, device=dev)
+        bi_scratch = None if plan.bi_smem else square()
+        p1_scratch = None if plan.p1_smem else square()
+        z_scratch = torch.empty(blocks, n + m, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.revised_simplex_launch(
@@ -221,6 +388,8 @@ class CudaRevBatch(CudaLPBatch):
                 c.data_ptr(), lo.data_ptr(), hi.data_ptr(),
                 wb.data_ptr(), wa.data_ptr(),
                 self.max_iters, self.feas_tol, self.cost_tol, self.pivot_tol,
+                plan.C, plan.threads,
+                int(plan.w_smem), int(plan.bi_smem), int(plan.p1_smem),
                 bi_scratch.data_ptr() if bi_scratch is not None else None,
                 p1_scratch.data_ptr() if p1_scratch is not None else None,
                 z_scratch.data_ptr(),
@@ -229,8 +398,9 @@ class CudaRevBatch(CudaLPBatch):
                 stream,
             )
         if err != 0:
-            raise RuntimeError(f"K2 launch failed: CUDA error {err}")
+            raise RuntimeError(f"K2 launch of {plan} failed: CUDA error {err}")
         self.launches += 1
+        self.cluster_sizes[plan.C] += 1
         LAUNCHES[self.kernel] += 1
         return out
 

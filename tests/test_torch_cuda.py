@@ -30,21 +30,21 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def lanes(name, dev, seed):
-    """B lanes of ``name`` on ``dev``: one stage objective per lane, free
-    objective rows, a few integer fixes on the lanes after the first, and
-    logical bounds row-scaled as the wave scales them."""
+def lanes(name, dev, seed, count=B):
+    """``count`` lanes of ``name`` on ``dev``: one stage objective per lane,
+    free objective rows, a few integer fixes on the lanes after the first,
+    and logical bounds row-scaled as the wave scales them."""
     rng = np.random.default_rng(seed)
     p = read_problem(os.path.join(EX, name))
     t = lp_tensors(p, dev)
     n, m, k = p.n, p.m_total, p.objcnt
-    c = np.zeros((B, n + m))
-    for b in range(B):
+    c = np.zeros((count, n + m))
+    for b in range(count):
         c[b, :n] = (1.0 if p.objsen is Sense.MIN else -1.0) * p.C[b % k]
     free = np.full(k, np.inf)
-    lo = np.tile(np.concatenate([p.lb, p.row_lb, -free]), (B, 1))
-    hi = np.tile(np.concatenate([p.ub, p.row_ub, free]), (B, 1))
-    for b in range(1, B):
+    lo = np.tile(np.concatenate([p.lb, p.row_lb, -free]), (count, 1))
+    hi = np.tile(np.concatenate([p.ub, p.row_ub, free]), (count, 1))
+    for b in range(1, count):
         for v in rng.choice(n, size=int(rng.integers(1, 4)), replace=False):
             if rng.random() < 0.5 or not np.isfinite(hi[b, v]):
                 hi[b, v] = lo[b, v]
@@ -147,6 +147,83 @@ def test_revised_kernel_refuses_tensors_on_another_device(cuda_device):
     with pytest.raises(ValueError):
         k2(*(a.cpu() for a in args), wb, wa)
     assert k2.launches == 0
+
+
+#: the plain version's outcome on REV_LANES lanes of each shape, cold and
+#: half warm, filled by the first test that needs it: a lane's outcome does
+#: not depend on its batch, so each launch below is held against the rows
+#: of its lanes
+_REV_CASES = {}
+REV_LANES = 256
+
+
+def rev_case(name, dev):
+    if name not in _REV_CASES:
+        t, args = lanes(name, dev, seed=11, count=REV_LANES)
+        m, nc = t.W_dev.shape
+        W = t.W_dev.to(dev, torch.float32).contiguous()
+        wb = torch.full((REV_LANES, m), -1, dtype=torch.int32, device=dev)
+        wa = torch.zeros((REV_LANES, nc), dtype=torch.int32, device=dev)
+        cold = st.revised_lp_batch_ref(W, *args, wb, wa)
+        even = (torch.arange(REV_LANES, device=dev) % 2 == 0)[:, None]
+        wb_w = torch.where(even, cold.basis, -1).contiguous()
+        wa_w = torch.where(even, cold.at_upper, 0).contiguous()
+        warm = st.revised_lp_batch_ref(W, *args, wb_w, wa_w)
+        _REV_CASES[name] = (t, args, {"cold": (wb, wa, cold), "warm": (wb_w, wa_w, warm)})
+    return _REV_CASES[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["G2AP05.lp", "2AP20.lp", "2AP40.lp", "2AP100.lp"])
+# every C the launch plan returns: G2AP05 and 2AP20 1; 2AP40 4 up to 33
+# lanes, 2 at 64 and 1 at 256; 2AP100 8 up to 16 lanes, 2 at 64, 1 at 256
+@pytest.mark.parametrize("lanes_n", [1, 8, 64, 256])
+def test_revised_cluster_plans_match_plain_bit_for_bit(cuda_device, name, lanes_n):
+    """K2 on the first ``lanes_n`` lanes, with the cluster the plan picks
+    for them, equals the plain version's rows of those lanes bit for bit,
+    cold and with every other lane warm."""
+    from moip_aira_tpu_torch.solver.cuda_lp import REV_MAX_CLUSTER
+
+    dev = cuda_device
+    t, args, starts = rev_case(name, dev)
+    k2 = make_cuda_rev_batch(t.W_dev, dev)
+    plan = k2.plan(lanes_n)
+    assert 1 <= plan.C <= REV_MAX_CLUSTER and k2.max_clusters(plan) >= 1
+    want = {
+        "G2AP05.lp": {1: 1, 8: 1, 64: 1, 256: 1},
+        "2AP20.lp": {1: 1, 8: 1, 64: 1, 256: 1},
+        "2AP40.lp": {1: 4, 8: 4, 64: 2, 256: 1},
+        "2AP100.lp": {1: 8, 8: 8, 64: 2, 256: 1},
+    }[name][lanes_n]
+    assert plan.C == want
+    for label, (wb, wa, ref) in starts.items():
+        out = k2(*(a[:lanes_n] for a in args), wb[:lanes_n], wa[:lanes_n])
+        torch.cuda.synchronize()
+        for f in out._fields:
+            assert torch.equal(getattr(out, f), getattr(ref, f)[:lanes_n]), (label, f)
+    assert k2.cluster_sizes == {plan.C: 2}
+
+
+@pytest.mark.cuda
+def test_revised_kernel_refuses_a_plan_that_does_not_fit(cuda_device):
+    """A plan whose shared memory or block shape the kernel cannot take is
+    refused before the launch and raises; nothing is counted."""
+    from dataclasses import replace
+
+    t, args = lanes("2AP100.lp", cuda_device, seed=0)
+    k2 = make_cuda_rev_batch(t.W_dev, cuda_device)
+    m, nc = t.W_dev.shape
+    wb = torch.full((B, m), -1, dtype=torch.int32, device=cuda_device)
+    wa = torch.zeros((B, nc), dtype=torch.int32, device=cuda_device)
+    plan = k2.plan(B)
+    for bad in (
+        replace(plan, w_smem=True, p1_smem=True),  # 1 MB of W slice a block
+        replace(plan, threads=48),
+        replace(plan, C=16),
+    ):
+        with pytest.raises(RuntimeError):
+            k2.run(*args, wb, wa, bad)
+    assert k2.launches == 0 and not k2.cluster_sizes
 
 
 def fragment_lanes(name, dev, lanes_n, seed):
