@@ -41,22 +41,30 @@ knapsacks — and fails unless every phase passes:
               the engine left to the backend (K2, warm starts on), held
               against its golden: K2 launched once per device wave, K1
               never, the same bound on re-solves; K2's launches by cluster
-              size;
-9. fragment:  K3 against its plain version on the card at G3KP10's shape
-              (256 lanes, F=32), 2AP20's (256 lanes, F=32, cold and half
-              warm from the first launch's final bases) and 2AP40's (64
-              lanes, F=8, 2000 ticks): every raw output of every lane equal
-              bit for bit;
-10. frag:     the full 2AP20 front through solve_front on the fragment path
+              size with their lanes, the clusters of each size the card
+              holds, and how many launches that count moved off the C a
+              cluster for every C SMs would give;
+9. frag:      the full 2AP20 front through solve_front on the fragment path
               (WaveLexBackend(fragments=True), the backend's default
               widths), held against its golden: K3 launched once per device
               wave, K1 and K2 never, at most MAX_HOST_REC_SHARE of the
               logged records sent to exact host LPs, and no request handed
-              whole to the exact host path;
-11. frag3:    G3AP05 (k=3, the scheduler ladder) on the fragment path and
+              whole to the exact host path; K3's launches by cluster size
+              with their lanes, and the mean lanes a launch;
+10. frag3:    G3AP05 (k=3, the scheduler ladder) on the fragment path and
               G3KP10 with frag_nodes=2 (budget stops, re-opened siblings),
               held the same way;
-12. frag-wide: the full 2AP40 front on the fragment path, held the same way;
+11. frag-wide: the full 2AP40 front on the fragment path, held the same way;
+12. fragment: K3 against its plain version on the card at G3KP10's shape
+              (256 lanes, F=32), 2AP20's (256 lanes, F=32, cold and half
+              warm from the first launch's final bases) and 2AP40's (64
+              lanes, F=8, 2000 ticks), then on new cold lanes at 2AP20's and
+              2AP40's shapes as many as a launch of frag and frag-wide had
+              on average in this run, and on the first one of them: every
+              raw output of every lane equal bit for bit, each launch with
+              the cluster size and layout K3's plan picks (printed, with us
+              a mean pivot); fails unless 2AP20 prices from a shared-memory
+              W and 2AP40 runs on a cluster with a shared-memory W slice;
 13. dp-kernel: K4 against its plain version on the card at G2KP50, 2KP100
               and 2KP500 (generated, seed 1): the full final int32 table
               equal bit for bit, one launch per expanded item; K4's time for
@@ -622,39 +630,125 @@ def fragment_par(problem, c, lo, hi, front, F):
     return par
 
 
-def phase_fragment(seed):
-    """K3 against fragment_batch_ref on the same CUDA inputs: fragment roots
-    made from the golden front's requests, at the shapes the fragment fronts
-    give it."""
+def fragment_case(p, t, rng, name, lanes, F, max_ticks, dev):
+    """K3's wrapper and ``lanes`` fragment roots of instance ``p`` (made
+    from the golden front's requests, see ``fragment_par``), cold."""
+    import torch
+
+    from moip_aira_tpu_torch.solver.cuda_bb import make_cuda_bb_batch
+
+    n, m = p.n, p.m_total
+    (ct, lot, hit), (c, lo, hi) = scaled_lanes(p, t.row_scale, rng, name, lanes, dev)
+    par = torch.as_tensor(fragment_par(p, c, lo, hi, golden_front(name), F), device=dev)
+    node_iters = max(200, 6 * m)  # the wave's per-node cap
+    fn, meta = make_cuda_bb_batch(
+        t.W_dev, p.is_int, dev, F=F, D=128, node_iters=node_iters, max_ticks=max_ticks,
+    )
+    return fn, meta, (ct, lot, hit, par), cold_start(lanes, m, n + m, dev)
+
+
+def fragment_rows(name, p, fn, inputs, wb, wa, subsets, label, row_kind):
+    """K3 against fragment_batch_ref on the same CUDA inputs: the plain
+    version once on all the lanes, K3 on the first ``subsets`` of them (a
+    lane's walk does not depend on its batch), each launch with the cluster
+    size and layout the wrapper's plan picks for its lane count; every raw
+    output of every lane equal bit for bit."""
+    import numpy as np
+
+    from moip_aira_tpu_torch.solver.bb_torch import (
+        F_ACTION, FragmentOutcome, LS_BUDGET, LS_TICKS, fragment_batch_ref,
+    )
+
+    actions = ("branch", "prune", "infeasible", "leaf", "iterlim")
+    ct, lot, hit, par = inputs
+    n, m, F = p.n, p.m_total, fn.F
+    out_p, plain_ms = events_ms(
+        lambda: fragment_batch_ref(
+            fn.W, p.is_int, ct, lot, hit, par, wb, wa, F=F, D=fn.D,
+            node_iters=fn.node_iters, max_ticks=fn.max_ticks,
+        )
+    )
+    rows = []
+    for sub in subsets:
+        args = (ct[:sub], lot[:sub], hit[:sub], par[:sub], wb[:sub], wa[:sub])
+        plan = fn.plan(sub)
+        out_k = fn(*args)
+        raw = FragmentOutcome(**{f: out_k[f] for f in FragmentOutcome._fields})
+        assert_bitwise(
+            f"K3 {name} {label} {sub} lanes (C={plan.C})", raw,
+            FragmentOutcome(*(f[:sub] for f in out_p)),
+        )
+        ms = cuda_ms(lambda: fn._launch(*args))
+        nlog = raw.nlog.cpu().numpy()
+        iters = raw.iters.cpu().numpy()
+        acts = np.concatenate(
+            [raw.lg_scal[b, : min(k, F), F_ACTION].cpu().numpy() for b, k in enumerate(nlog)]
+        ).astype(int)
+        lstate = raw.lstate.cpu().numpy()
+        bound_ms, bound_by = bound(
+            "bb_fragment", m, n, iters, int((wb[:sub, 0] >= 0).sum()), nlog
+        )
+        row = {
+            "phase": "fragment",
+            "kernel": "bb_fragment",
+            "instance": name,
+            "start": label,
+            "rows": row_kind,
+            "m": m,
+            "nc": n + m,
+            "lanes": sub,
+            "C": plan.C,
+            "layout": plan.layout,
+            "threads": plan.threads,
+            "F": F,
+            "max_ticks": fn.max_ticks,
+            "records": int(nlog.sum()),
+            "records_by_action": {
+                a: int((acts == i).sum()) for i, a in enumerate(actions)
+            },
+            "budget_stops": int((lstate == LS_BUDGET).sum()),
+            "tick_stops": int((lstate == LS_TICKS).sum()),
+            "max_ticks_used": int(raw.ticks.max()),
+            "mean_iters": float(iters.mean()),
+            "max_iters": int(iters.max()),
+            "us_per_mean_pivot": 1e3 * ms / max(1.0, float(iters.mean())),
+            "bitwise_equal": True,
+            "max_abs_err": 0.0,
+            "ms": ms,
+            # the plain version ran once, on all of the set's lanes
+            "plain_ms": plain_ms,
+            "plain_lanes": int(ct.shape[0]),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def phase_fragment(seed, front_lanes):
+    """K3 against fragment_batch_ref on the same CUDA inputs, at the shapes
+    the fragment fronts give it: the lanes of FRAGMENT_SHAPES, then, for
+    each instance of ``front_lanes``, a set of as many lanes as a launch of
+    its front had on average in this run, on all of them and on one."""
     import numpy as np
     import torch
 
     from moip_aira_tpu_torch.convert import lp_tensors
     from moip_aira_tpu_torch.io import read_problem
-    from moip_aira_tpu_torch.solver.bb_torch import (
-        F_ACTION, FragmentOutcome, LS_BUDGET, LS_TICKS, fragment_batch_ref,
-    )
-    from moip_aira_tpu_torch.solver.cuda_bb import make_cuda_bb_batch
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(seed + 3)
-    actions = ("branch", "prune", "infeasible", "leaf", "iterlim")
     rows = []
+    shapes = {}
     for name, lanes, F, max_ticks, starts in FRAGMENT_SHAPES:
         p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
         t = lp_tensors(p, dev)
-        n, m = p.n, p.m_total
-        (ct, lot, hit), (c, lo, hi) = scaled_lanes(p, t.row_scale, rng, name, lanes, dev)
-        par = torch.as_tensor(
-            fragment_par(p, c, lo, hi, golden_front(name), F), device=dev
+        shapes[name] = (p, t, F, max_ticks)
+        fn, meta, inputs, (wb_cold, wa_cold) = fragment_case(
+            p, t, rng, name, lanes, F, max_ticks, dev
         )
-        node_iters = max(200, 6 * m)  # the wave's per-node cap
-        fn, meta = make_cuda_bb_batch(
-            t.W_dev, p.is_int, dev, F=F, D=128, node_iters=node_iters,
-            max_ticks=max_ticks,
-        )
-        wb_cold, wa_cold = cold_start(lanes, m, n + m, dev)
-        first = fn(ct, lot, hit, par, wb_cold, wa_cold)
+        first = fn(*inputs, wb_cold, wa_cold)
         # half the lanes warm from the bases the first launch stopped with
         even = (torch.arange(lanes, device=dev) % 2 == 0)[:, None]
         fin_wa = torch.as_tensor(
@@ -670,52 +764,19 @@ def phase_fragment(seed):
         }
         for label in starts:
             wb, wa = starts_wb[label]
-            out_k = fn(ct, lot, hit, par, wb, wa)
-            out_p, plain_ms = events_ms(
-                lambda: fragment_batch_ref(
-                    fn.W, p.is_int, ct, lot, hit, par, wb, wa, F=F, D=128,
-                    node_iters=node_iters, max_ticks=max_ticks,
-                )
-            )
-            raw = FragmentOutcome(**{f: out_k[f] for f in FragmentOutcome._fields})
-            assert_bitwise(f"K3 {name} {label}", raw, out_p)
-            ms = cuda_ms(lambda: fn._launch(ct, lot, hit, par, wb, wa))
-            nlog = raw.nlog.cpu().numpy()
-            iters = raw.iters.cpu().numpy()
-            acts = np.concatenate(
-                [raw.lg_scal[b, : min(k, F), F_ACTION].cpu().numpy() for b, k in enumerate(nlog)]
-            ).astype(int)
-            lstate = raw.lstate.cpu().numpy()
-            bound_ms, bound_by = bound(
-                "bb_fragment", m, n, iters, int((wb[:, 0] >= 0).sum()), nlog
-            )
-            row = {
-                "phase": "fragment",
-                "kernel": "bb_fragment",
-                "instance": name,
-                "start": label,
-                "m": m,
-                "nc": n + m,
-                "lanes": lanes,
-                "F": F,
-                "max_ticks": max_ticks,
-                "records": int(nlog.sum()),
-                "records_by_action": {
-                    a: int((acts == i).sum()) for i, a in enumerate(actions)
-                },
-                "budget_stops": int((lstate == LS_BUDGET).sum()),
-                "tick_stops": int((lstate == LS_TICKS).sum()),
-                "max_ticks_used": int(raw.ticks.max()),
-                "mean_iters": float(iters.mean()),
-                "bitwise_equal": True,
-                "max_abs_err": 0.0,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-            }
-            emit(row)
-            rows.append(row)
+            rows += fragment_rows(name, p, fn, inputs, wb, wa, (lanes,), label, "shape")
+    for name, lanes in front_lanes.items():
+        p, t, F, max_ticks = shapes[name]
+        fn, _, inputs, (wb, wa) = fragment_case(p, t, rng, name, lanes, F, max_ticks, dev)
+        rows += fragment_rows(
+            name, p, fn, inputs, wb, wa, sorted({1, lanes}), "cold", "front"
+        )
+    # the plans this card gives: all of W in shared memory at 2AP20, a W
+    # slice in shared memory on a cluster at 2AP40
+    if not all("W" in r["layout"] for r in rows if r["instance"] == "2AP20"):
+        raise AssertionError("K3 at 2AP20 did not price from a shared-memory W")
+    if not any(r["C"] > 1 and "W" in r["layout"] for r in rows if r["instance"] == "2AP40"):
+        raise AssertionError("K3 at 2AP40 never ran on a cluster with a shared-memory W slice")
     return rows
 
 
@@ -840,6 +901,20 @@ def phase_cli():
     return rows
 
 
+def lanes_by_cluster(launch_lanes):
+    """A wrapper's launches by cluster size C: how many, and the least,
+    mean and largest lanes a launch."""
+    by = {}
+    for (C, lanes), k in sorted(launch_lanes.items()):
+        d = by.setdefault(C, {"launches": 0, "lanes": 0, "min": lanes, "max": lanes})
+        d["launches"] += k
+        d["lanes"] += k * lanes
+        d["max"] = lanes
+    for d in by.values():
+        d["mean"] = d.pop("lanes") / d["launches"]
+    return by
+
+
 def phase_front(phase, name, kernel):
     """The full front of ``name`` at the bench's widths, in this process,
     with the LP engine left to the backend's shape rule: ``kernel`` must
@@ -885,6 +960,19 @@ def phase_front(phase, name, kernel):
             f"(want {kernel} on each, no other kernel)"
         )
     check_fallbacks(name, be.verify_fallbacks, be.lp_count)
+    k2 = be.lp_kernel
+    plan_moves = None
+    if hasattr(k2, "launch_lanes"):
+        # the launches whose C this card's cluster count moved: the plan
+        # before it read the card assumed a cluster for every C SMs
+        from moip_aira_tpu_torch.solver.cuda_lp import rev_launch_plan
+
+        smem, sms = k2.device_limits
+        assumed = {C: sms // C for C in k2.held}
+        plan_moves = sum(
+            k for (C, lanes), k in k2.launch_lanes.items()
+            if rev_launch_plan(k2.m, k2.n, lanes, smem, sms, assumed).C != C
+        )
     row = {
         "phase": phase,
         "instance": name,
@@ -897,8 +985,13 @@ def phase_front(phase, name, kernel):
         "lps": be.lp_count,
         "verify_fallbacks": be.verify_fallbacks,
         "launches": launches[kernel],
-        # K2's launches by cluster size
-        "cluster_sizes": dict(getattr(be.lp_kernel, "cluster_sizes", {})),
+        # K2's launches by cluster size, their lanes, and how many of them
+        # the clusters the card holds moved off the C a cluster for every C
+        # SMs would give
+        "cluster_sizes": dict(getattr(k2, "cluster_sizes", {})),
+        "lanes_by_C": lanes_by_cluster(getattr(k2, "launch_lanes", {})),
+        "clusters_held": dict(getattr(k2, "held", {})) if plan_moves is not None else None,
+        "launches_moved_by_held": plan_moves,
         "host_spans_seconds": spans,
         "golden": True,
     }
@@ -959,6 +1052,7 @@ def phase_frag_front(phase, name, workers, **kw):
             f"{name} ({phase}): {fs['req_fallbacks']} requests fell back whole "
             f"to the exact host path"
         )
+    k3 = be.frag_kernel
     row = {
         "phase": phase,
         "instance": name,
@@ -969,6 +1063,11 @@ def phase_frag_front(phase, name, workers, **kw):
         "ips": int(front.ip_count),
         "waves": be.device_waves,
         "launches": launches["bb_fragment"],
+        # K3's launches by cluster size and their lanes
+        "cluster_sizes": dict(k3.cluster_sizes),
+        "lanes_by_C": lanes_by_cluster(k3.launch_lanes),
+        "clusters_held": dict(k3.held),
+        "mean_lanes": fs["lanes"] / max(1, fs["waves"]),
         "records": fs["records"],
         "host_recs": fs["host_recs"],
         "host_rec_share": fs["host_recs"] / max(1, fs["records"]),
@@ -1250,7 +1349,6 @@ def main() -> int:
     phase_build()
     k1_rows = phase_kernels(args.seed)
     k2_rows = phase_revised(args.seed)
-    k3_rows = phase_fragment(args.seed)
     phase_crossover(args.seed)
     phase_cli()
     real = phase_front("real", "2AP20", "dense_simplex")
@@ -1258,7 +1356,11 @@ def main() -> int:
     frag = phase_frag_front("frag", "2AP20", 1)
     phase_frag_front("frag3", "G3AP05", 2)
     phase_frag_front("frag3", "G3KP10", 1, frag_nodes=2)
-    phase_frag_front("frag-wide", "2AP40", 1)
+    frag_wide = phase_frag_front("frag-wide", "2AP40", 1)
+    # K3 at the lanes a launch of each front had on average
+    k3_rows = phase_fragment(args.seed, {
+        "2AP20": round(frag["mean_lanes"]), "2AP40": round(frag_wide["mean_lanes"]),
+    })
     with tempfile.TemporaryDirectory() as tmp:
         k4_rows, plain_fronts = phase_dp_kernel(tmp)
         dp_main = phase_dp(tmp, plain_fronts)

@@ -1,5 +1,5 @@
 // The revised-simplex core shared by K2 (revised_simplex.cu, one LP per
-// thread-block cluster) and K3 (bb_fragment.cu, a B&B subtree per block):
+// thread-block cluster) and K3 (bb_fragment.cu, a B&B subtree per cluster):
 // the warm-basis rebuild, the basic solution, and the sub-steps of one
 // pivot.  Each function is called by every thread of the block; results that
 // all threads need come back through shared memory or a reduction that hands
@@ -13,8 +13,7 @@
 // (RevSplit): each block prices its own column range and the blocks' winners
 // are combined through distributed shared memory.  Everything else a pivot
 // does is m-sized and every block of the cluster repeats it identically, so
-// each block keeps its own B^-1.  K3 prices the whole range in a cluster of
-// one (rev_whole).
+// each block keeps its own B^-1.  K2 and K3 split pricing alike.
 
 #pragma once
 
@@ -63,11 +62,10 @@ struct RevLane {
   float* bl;
   float* bh;
   float* cB;
-  float* cB1;     // phase-1 basic costs
   float* y;       // c_B^T B^-1; W z_N at the start
   float* alpha;   // entering column; the rebuild's pivot column
   float* ratio;   // each row's phase-1 infeasibility, then its ratio
-  float* rowdiv;  // pivot row of B^-1 over the pivot
+  float* rowdiv;  // each row's phase-1 cost, then the pivot row of B^-1 / piv
   float* wq;      // W[:, q]; the rebuild's pivot row of P1 over the pivot
   int* basis;
   int* hits_up;
@@ -96,11 +94,6 @@ struct RevSplit {
   int csize;
   RevCand* mail;
 };
-
-// the whole row in one block, read from W: K3's pricing
-__device__ __forceinline__ RevSplit rev_whole(const RevLane& L) {
-  return RevSplit{0, L.nc, L.nc, nullptr, 1, nullptr};
-}
 
 // ---- reductions that hand every thread the same result -------------------
 // Each warp reduces towards lane 0 and broadcasts lane 0's value, so every
@@ -288,20 +281,6 @@ __device__ __forceinline__ float rev_row_infeasibility(const RevLane& L, int i,
   return __fadd_rn(below ? l - x : 0.0f, above ? x - h : 0.0f);
 }
 
-// Phase-1 infeasibility of the basic solution: each row's share in ratio[]
-// (until the ratio test overwrites it), the phase-1 costs in cB1[], and
-// their in-order sum, returned to every thread through *s_sum.
-__device__ float rev_infeasibility(const RevLane& L, float feas_tol,
-                                   float* s_sum) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < L.m; i += nt)
-    L.ratio[i] = rev_row_infeasibility(L, i, feas_tol, &L.cB1[i]);
-  __syncthreads();
-  if (tid == 0) *s_sum = seq_sum(L.ratio, L.m);
-  __syncthreads();
-  return *s_sum;
-}
-
 // c_B^T x_B in index order (meaningful in thread 0; the caller reads it
 // there).
 __device__ float rev_basic_objective(const RevLane& L) {
@@ -311,43 +290,39 @@ __device__ float rev_basic_objective(const RevLane& L) {
   return cur;
 }
 
-// What a pivot of K2 needs before pricing, behind one barrier, while the
-// phase is not yet known: y for both phases -- c_B^T B^-1 into y, and
-// cB1^T B^-1 with the phase-1 costs taken inline into alpha (free until the
-// entering column) -- the in-order phase-1 sum into *s_sum and, when
-// want_obj, c_B^T x_B into *s_obj.  Work item k runs on thread k mod nt:
-// items [0, m) and [m, 2m) are the two y's, item pad (the first warp after
-// them) the phase-1 sum, item pad + 32 the objective, so with nt > pad + 32
-// the two serial sums have warps of their own and all four run side by
-// side.  rev_pivot(..., y_ready = true) then prices with the y of the
-// phase.
+// What a pivot of K2 and K3 needs before pricing, behind two barriers,
+// while the phase is not yet known.  First each row's phase-1 cost (into
+// rowdiv) and infeasibility (into ratio; both free until the ratio test),
+// one row a thread; then, side by side: y for both phases -- c_B^T B^-1
+// into y and the phase-1 costs' y into alpha (free until the entering
+// column) -- the in-order phase-1 sum into *s_sum and, when want_obj,
+// c_B^T x_B into *s_obj.  Work slot s runs on thread s mod nt: slots
+// [0, m) are phase 2's y, slots [mw, mw + m) phase 1's (mw is m rounded up
+// to a warp, so that no warp runs a chain of each kind one after the
+// other), slot 2 mw the phase-1 sum and slot 2 mw + 32 the objective, so
+// with nt >= 2 mw + 64 the four chains run in warps of their own.
+// rev_pivot then prices with the y of the phase.
 __device__ void rev_pivot_start(const RevLane& L, float feas_tol,
                                 bool want_obj, float* s_sum, float* s_obj) {
   const int tid = threadIdx.x, nt = blockDim.x, m = L.m;
-  const int pad = 32 * ((2 * m + 31) / 32);
-  float cost;
-  for (int k = tid; k < 2 * m; k += nt) {
-    const int j = k < m ? k : k - m;
-    float acc = 0.0f;
-    if (k < m) {
+  const int mw = 32 * ((m + 31) / 32);
+  float* cost = L.rowdiv;
+  float* infeas = L.ratio;
+  for (int i = tid; i < m; i += nt)
+    infeas[i] = rev_row_infeasibility(L, i, feas_tol, &cost[i]);
+  __syncthreads();
+  for (int s = tid; s < 2 * mw; s += nt) {
+    const float* cv = s < m ? L.cB : cost;
+    const int j = s < m ? s : s - mw;
+    if (s < m || (s >= mw && s < mw + m)) {
+      float acc = 0.0f;
       for (int i = 0; i < m; ++i)
-        acc = __fadd_rn(acc, __fmul_rn(L.cB[i], L.BI[i * m + j]));
-      L.y[j] = acc;
-    } else {
-      for (int i = 0; i < m; ++i) {
-        rev_row_infeasibility(L, i, feas_tol, &cost);
-        acc = __fadd_rn(acc, __fmul_rn(cost, L.BI[i * m + j]));
-      }
-      L.alpha[j] = acc;
+        acc = __fadd_rn(acc, __fmul_rn(cv[i], L.BI[i * m + j]));
+      (s < m ? L.y : L.alpha)[j] = acc;
     }
   }
-  if (tid == pad % nt) {
-    float acc = 0.0f;
-    for (int i = 0; i < m; ++i)
-      acc = __fadd_rn(acc, rev_row_infeasibility(L, i, feas_tol, &cost));
-    *s_sum = acc;
-  }
-  if (want_obj && tid == (pad + 32) % nt) *s_obj = rev_basic_objective(L);
+  if (tid == (2 * mw) % nt) *s_sum = seq_sum(infeas, m);
+  if (want_obj && tid == (2 * mw + 32) % nt) *s_obj = rev_basic_objective(L);
   __syncthreads();
 }
 
@@ -416,18 +391,17 @@ __device__ RevCand rev_price(const RevLane& L, const RevSplit& S,
   return best;
 }
 
-// One iteration of the bounded revised simplex after the phase-1 costs
-// (rev_infeasibility) or, with y_ready, after rev_pivot_start: y unless
-// y_ready, pricing (this block's columns, combined across the cluster), the
+// One iteration of the bounded revised simplex after rev_pivot_start:
+// pricing (this block's columns, combined across the cluster), the
 // entering column, the ratio test with bound flips, and the step (the
 // rank-1 update of B^-1 and the basis bookkeeping) unless the LP ended.
 // `parity` picks the cluster mailbox (alternate it from pivot to pivot).
-// Four block barriers after y, and one cluster barrier when the cluster has
-// more than one block.
+// Four block barriers, and one cluster barrier when the cluster has more
+// than one block.
 template <bool W_SMEM>
 __device__ RevStep rev_pivot(const RevLane& L, const RevSplit& S, bool phase1,
                              bool bland, float feas_tol, float cost_tol,
-                             float pivot_tol, int parity, bool y_ready) {
+                             float pivot_tol, int parity) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int m = L.m, nc = L.nc, mm = m * m;
   const float* W = L.W;
@@ -438,20 +412,8 @@ __device__ RevStep rev_pivot(const RevLane& L, const RevSplit& S, bool phase1,
   float* xB = L.xB;
   float* bl = L.bl;
   float* bh = L.bh;
-  const float* yv = L.y;
-  if (!y_ready) {
-    // y = cB_eff^T B^-1: one column of B^-1 per thread
-    const float* cBe = phase1 ? L.cB1 : L.cB;
-    for (int j = tid; j < m; j += nt) {
-      float acc = 0.0f;
-      for (int i = 0; i < m; ++i)
-        acc = __fadd_rn(acc, __fmul_rn(cBe[i], BI[i * m + j]));
-      L.y[j] = acc;
-    }
-    __syncthreads();
-  } else if (phase1) {
-    yv = L.alpha;  // rev_pivot_start's phase-1 y
-  }
+  // rev_pivot_start's y of the phase
+  const float* yv = phase1 ? L.alpha : L.y;
 
   // pricing d = c - y W over this block's columns, then the cluster's winner
   RevCand win = rev_block_cand(

@@ -59,8 +59,8 @@
 // global memory, once per launch; the warm rebuild gathers from W too.
 //
 // The rebuild, the basic solution and the pivot's sub-steps live in
-// revised_core.cuh, which K3 (bb_fragment.cu) runs in every B&B node, with
-// the whole row in one block.
+// revised_core.cuh, which K3 (bb_fragment.cu) runs in every B&B node, on a
+// cluster of its own.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -72,7 +72,7 @@ namespace {
 
 constexpr int MAX_THREADS = 512;
 constexpr int MAX_CLUSTER = 8;   // the portable cluster size
-constexpr int ROW_VECTORS = 10;  // float vectors of m entries per lane
+constexpr int ROW_VECTORS = 9;  // float vectors of m entries per lane
 
 // dynamic shared bytes of the per-row and per-column vectors
 size_t rev_vector_bytes(int m, int nc) {
@@ -162,8 +162,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   p += m;
   float* cB = p;
   p += m;
-  float* cB1 = p;  // phase-1 basic costs
-  p += m;
   float* y = p;  // c_B^T B^-1; W z_N at the start
   p += m;
   float* alpha = p;  // entering column; the rebuild's pivot column
@@ -188,9 +186,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   bp += m;
   unsigned char* remaining = bp;  // rebuild: basis entries not yet placed
 
-  const RevLane L{m,  n,   nc,    W,     c,      lo, hi,    BI,
-                  xB, bl,  bh,    cB,    cB1,    y,  alpha, ratio,
-                  rowdiv, wq, basis, hits_up, inb, atup, &rs};
+  const RevLane L{m,  n,  nc,    W,     c,      lo,     hi,     BI,
+                  xB, bl, bh,    cB,    y,      alpha,  ratio,  rowdiv,
+                  wq, basis, hits_up, inb, atup, &rs};
   const RevSplit S{j0, j1, width, ws, csize, mail};
 
   if (W_S) {
@@ -260,7 +258,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     const bool phase1 = infeas_sum > feas_tol;
     const RevStep st =
         rev_pivot<W_S>(L, S, phase1, stall >= STALL_LIMIT, feas_tol, cost_tol,
-                       pivot_tol, it & 1, true);
+                       pivot_tol, it & 1);
     status = st.status;
     prev_phase1 = phase1;
     prev_sum = infeas_sum;

@@ -37,10 +37,12 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the library for its hash exists."""
+def build(name: str, defines: tuple = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` unless the library for its hash exists;
+    ``defines`` are extra ``-D`` flags of an instrumented variant."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + tuple(defines)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(header.read_bytes())
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
@@ -53,7 +55,7 @@ def build(name: str) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [find_nvcc(), *flags, "-o", tmp, str(src)],
             capture_output=True,
             text=True,
         )
@@ -70,6 +72,7 @@ def build(name: str) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Build (when needed) and load ``csrc/<name>.cu``, once per process."""
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """Build (when needed) and load ``csrc/<name>.cu``, once per process
+    and set of ``defines``."""
+    return ctypes.CDLL(str(build(name, tuple(defines))))

@@ -90,13 +90,25 @@ def _revised_simplex_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _rev_max_clusters(device: int, m: int, n: int, C: int, threads: int,
+                      w_smem: bool, bi_smem: bool, p1_smem: bool) -> int:
+    with torch.cuda.device(device):
+        got = _revised_simplex_lib().revised_simplex_max_clusters(
+            m, n, C, threads, int(w_smem), int(bi_smem), int(p1_smem)
+        )
+    if got < 0:
+        raise RuntimeError(f"K2: occupancy of C={C} for {m} x {n + m} failed: CUDA error {-got}")
+    return got
+
+
 # K2's limits, as csrc/revised_simplex.cu and csrc/simplex_common.cuh set
 # them: threads a block, blocks a cluster (the portable cluster size), float
 # vectors of m entries a lane, and the static shared bytes set aside beside
 # the dynamic part
 REV_MAX_THREADS = 512
 REV_MAX_CLUSTER = 8
-REV_ROW_VECTORS = 10
+REV_ROW_VECTORS = 9
 STATIC_SMEM_RESERVE = 1024
 #: the fewest columns a block of a split lane prices: four warps' worth, so
 #: that a block is not left mostly idle in pricing (a bound, not measured)
@@ -152,35 +164,54 @@ class RevPlan:
         return "+".join(parts) or "-"
 
 
-def rev_launch_plan(m: int, n: int, lanes: int, smem_bytes: int, sms: int) -> RevPlan:
+def cluster_sizes_for(nc: int) -> list:
+    """The cluster sizes a lane of ``nc`` columns may take: powers of two up
+    to REV_MAX_CLUSTER that leave each block at least REV_MIN_SLICE columns
+    (always 1)."""
+    return [C for C in (1, 2, 4, 8) if C == 1 or -(-nc // C) >= REV_MIN_SLICE]
+
+
+def pick_cluster(sizes, fits, lanes: int, sms: int, held) -> int:
+    """The cluster size of a launch of ``lanes`` lanes: the smallest C of
+    ``fits`` (the sizes whose W slice sits in shared memory) while the card
+    holds a cluster of C for every lane at once, else the largest C it
+    still holds them all at (1 when it holds them at none).  ``held`` maps C
+    to the clusters of C blocks the card holds at once
+    (cudaOccupancyMaxActiveClusters); no more than ``sms // C`` count."""
+
+    def room(C):
+        return lanes <= min(held.get(C, 0), sms // C)
+
+    if fits and room(fits[0]):
+        return fits[0]
+    return max(C for C in sizes if C == 1 or room(C))
+
+
+def rev_launch_plan(m: int, n: int, lanes: int, smem_bytes: int, sms: int, held) -> RevPlan:
     """K2's launch for ``lanes`` LPs of m rows and n structural columns on a
     card of ``sms`` SMs whose blocks may opt into ``smem_bytes`` of shared
-    memory.
+    memory and which holds ``held[C]`` clusters of C blocks at once.
 
-    C, the blocks of a lane's cluster, is a power of two up to 8 that leaves
-    each block at least REV_MIN_SLICE columns.  Within that: the smallest C
-    whose W slice fits in shared memory beside B^-1, while the launch still
-    has an SM for each of its blocks (pricing from shared memory makes more
-    blocks worth little more than their cluster barrier); else the largest
-    C that keeps every block of the launch on an SM of its own (lanes * C
-    <= sms; pricing then streams W from L2, and each block adds an SM's
-    share of it).  Measured on the H100 (tools/k2_cluster_bench.py --sweep;
-    PERF.md, PR 5), this picks the fastest C or one within 6% of it: 2AP40
-    takes 4 for 1 and 8 lanes, 2 for 64 and 1 for 256; 2AP100 8 for 1 and 8
-    lanes, 2 for 64 and 1 for 256.  Shared memory takes B^-1 first (every
-    pivot reads it three times), then the block's W slice (pricing reads it
-    once), then the warm block P1 (one rebuild a launch); what does not fit
-    stays in global memory.  Raises ValueError when not even the per-row
-    and per-column vectors fit."""
+    C, the blocks of a lane's cluster, is one of ``cluster_sizes_for``.
+    Within those: the smallest C whose W slice fits in shared memory beside
+    B^-1, while the card holds a cluster for every lane at once (pricing
+    from shared memory makes more blocks worth little more than their
+    cluster barrier); else the largest C at which it still holds them all
+    (pricing then streams W from L2, and each block adds an SM's share of
+    it); lanes past what the card holds would wait for a second round of
+    clusters (pick_cluster).  Measured on the H100
+    (tools/k2_cluster_bench.py --sweep; PERF.md §6), this picks the
+    fastest C or one within 6% of it: 2AP40 takes 4 for 1 and 8 lanes, 2
+    for 64 and 1 for 256; 2AP100 8 for 1 and 8 lanes, 2 for 64 and 1 for
+    256.  Shared memory takes B^-1 first (every pivot reads it three
+    times), then the block's W slice (pricing reads it once), then the warm
+    block P1 (one rebuild a launch); what does not fit stays in global
+    memory.  Raises ValueError when not even the per-row and per-column
+    vectors fit."""
     nc = n + m
-    lanes = max(lanes, 1)
-    sizes = [C for C in (1, 2, 4, 8) if C == 1 or -(-nc // C) >= REV_MIN_SLICE]
+    sizes = cluster_sizes_for(nc)
     fits = [C for C in sizes if rev_plan_for(m, n, C, smem_bytes).w_smem]
-    if fits and lanes * fits[0] <= sms:
-        C = fits[0]
-    else:
-        C = max(C for C in sizes if C == 1 or lanes * C <= sms)
-    return rev_plan_for(m, n, C, smem_bytes)
+    return rev_plan_for(m, n, pick_cluster(sizes, fits, max(lanes, 1), sms, held), smem_bytes)
 
 
 def rev_plan_for(m: int, n: int, C: int, smem_bytes: int) -> RevPlan:
@@ -195,9 +226,10 @@ def rev_plan_for(m: int, n: int, C: int, smem_bytes: int) -> RevPlan:
     p1 = bi and rev_smem_bytes(m, nc, C, w, True, True) <= cap
     width = -(-nc // C)
     # a thread per column of the slice, the warps rev_pivot_start needs to
-    # run both y's (2 m threads) and its two serial sums side by side, and
-    # at most eight elements of B^-1 a thread in the rank-1 update
-    want = max(width, 32 * (-(-2 * m // 32) + 2), -(-m * m // 8))
+    # run both y's (m threads each, from a warp boundary) and its two
+    # serial sums side by side, and at most eight elements of B^-1 a thread
+    # in the rank-1 update
+    want = max(width, 2 * 32 * -(-m // 32) + 64, -(-m * m // 8))
     return RevPlan(m, nc, C, min(REV_MAX_THREADS, 32 * -(-want // 32)), w, bi, p1)
 
 
@@ -313,7 +345,7 @@ class CudaRevBatch(CudaLPBatch):
     """K2, the revised simplex: the same contract, checks and counter as
     K1's ``CudaLPBatch``, one cluster of blocks per lane as
     ``rev_launch_plan`` says.  ``cluster_sizes`` counts this object's
-    launches by C."""
+    launches by C, ``launch_lanes`` by (C, lanes)."""
 
     kernel = "revised_simplex"
     plain = staticmethod(revised_lp_batch_ref)
@@ -321,6 +353,7 @@ class CudaRevBatch(CudaLPBatch):
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self.cluster_sizes: Counter = Counter()
+        self.launch_lanes: Counter = Counter()
 
     @functools.cached_property
     def device_limits(self) -> tuple:
@@ -333,19 +366,27 @@ class CudaRevBatch(CudaLPBatch):
             raise RuntimeError(f"K2: reading the card's limits failed: CUDA error {err}")
         return smem.value, sms.value
 
+    @functools.cached_property
+    def held(self) -> dict:
+        """Clusters of each size C the card holds at once, each under the
+        plan ``rev_plan_for`` gives that C."""
+        smem, _ = self.device_limits
+        return {
+            C: self.max_clusters(rev_plan_for(self.m, self.n, C, smem))
+            for C in cluster_sizes_for(self.n + self.m)
+        }
+
     def plan(self, lanes: int) -> RevPlan:
         """The launch ``rev_launch_plan`` picks for ``lanes`` lanes here."""
-        return rev_launch_plan(self.m, self.n, lanes, *self.device_limits)
+        return rev_launch_plan(self.m, self.n, lanes, *self.device_limits, self.held)
 
     def max_clusters(self, plan: RevPlan) -> int:
-        """How many clusters of ``plan`` the card holds at once."""
-        got = _revised_simplex_lib().revised_simplex_max_clusters(
-            self.m, self.n, plan.C, plan.threads,
-            int(plan.w_smem), int(plan.bi_smem), int(plan.p1_smem),
+        """How many clusters of ``plan`` the card holds at once (asked once
+        per plan and device)."""
+        return _rev_max_clusters(
+            self.device.index or 0, self.m, self.n, plan.C, plan.threads,
+            plan.w_smem, plan.bi_smem, plan.p1_smem,
         )
-        if got < 0:
-            raise RuntimeError(f"K2: occupancy of {plan} failed: CUDA error {-got}")
-        return got
 
     def run(self, c, lo, hi, wb, wa, plan: RevPlan) -> LPOutcome:
         """Launch K2 with the given plan instead of the chosen one (to
@@ -401,6 +442,7 @@ class CudaRevBatch(CudaLPBatch):
             raise RuntimeError(f"K2 launch of {plan} failed: CUDA error {err}")
         self.launches += 1
         self.cluster_sizes[plan.C] += 1
+        self.launch_lanes[plan.C, B] += 1
         LAUNCHES[self.kernel] += 1
         return out
 

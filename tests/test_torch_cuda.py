@@ -268,9 +268,10 @@ def fragment_lanes(name, dev, lanes_n, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "name,lanes_n,F,max_ticks",
-    # the smoke's three shapes: G3KP10 (deep trees, budget stops), 2AP20
-    # (all in shared memory), 2AP40 (82 x 1682, about 80 KB of shared
-    # memory a lane, a tick stop)
+    # the smoke's three shapes, each on the cluster its plan picks: G3KP10
+    # (deep trees, budget stops), 2AP20 (all in shared memory, W too),
+    # 2AP40 (82 x 1682, a W slice in shared memory on four blocks, a tick
+    # stop)
     [("G3KP10.lp", 64, 32, 8192), ("2AP20.lp", 32, 32, 8192), ("2AP40.lp", 16, 8, 2000)],
 )
 def test_fragment_kernel_matches_plain_bit_for_bit(cuda_device, name, lanes_n, F, max_ticks):
@@ -307,6 +308,113 @@ def test_fragment_kernel_matches_plain_bit_for_bit(cuda_device, name, lanes_n, F
         for f in ref._fields:
             assert torch.equal(out[f], getattr(ref, f)), f
     assert int(first["nlog"].sum()) > lanes_n and fn.launches == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,lanes_n,F,max_ticks,sizes",
+    # every C the shape allows: G3KP10 (14 columns) 1; 2AP20 1 (all of W
+    # in shared memory) and 2; 2AP40 1, 2, 4 (the W slice in shared memory)
+    # and 8
+    [
+        ("G3KP10.lp", 32, 32, 8192, (1,)),
+        ("2AP20.lp", 16, 32, 8192, (1, 2)),
+        ("2AP40.lp", 8, 8, 2000, (1, 2, 4, 8)),
+    ],
+)
+def test_fragment_cluster_plans_match_plain_bit_for_bit(
+    cuda_device, name, lanes_n, F, max_ticks, sizes
+):
+    """K3 through ``run(..., plan)`` at every cluster size the shape allows,
+    cold and with half the lanes warm from the first launch's final bases:
+    every raw output of every lane equal to the plain version's."""
+    from moip_aira_tpu_torch.solver.bb_torch import fragment_batch_ref
+    from moip_aira_tpu_torch.solver.cuda_bb import bb_plan_for, make_cuda_bb_batch
+    from moip_aira_tpu_torch.solver.cuda_lp import cluster_sizes_for
+
+    dev = cuda_device
+    p, t, c, lo, hi, par = fragment_lanes(name, dev, lanes_n, seed=5)
+    par[:, 2] = F
+    m, nc = t.W_dev.shape
+    n = nc - m
+    assert tuple(cluster_sizes_for(nc)) == sizes
+    node_iters = max(200, 6 * m)
+    fn, meta = make_cuda_bb_batch(
+        t.W_dev, p.is_int, dev, F=F, D=128, node_iters=node_iters, max_ticks=max_ticks
+    )
+    smem, _ = fn.device_limits
+    first = fn(c, lo, hi, par)
+    wb = first["fin_basis"].clone()
+    wa = torch.as_tensor(meta["unpack_atup1"](first["fin_atup"].cpu().numpy()), dtype=torch.int32, device=dev)
+    wb[1::2] = -1
+    wa[1::2] = 0
+    cold = (
+        torch.full((lanes_n, m), -1, dtype=torch.int32, device=dev),
+        torch.zeros((lanes_n, nc), dtype=torch.int32, device=dev),
+    )
+    for wbx, wax in (cold, (wb.contiguous(), wa.contiguous())):
+        ref = fragment_batch_ref(
+            fn.W, p.is_int, c, lo, hi, par, wbx, wax, F=F, D=128,
+            node_iters=node_iters, max_ticks=max_ticks,
+        )
+        for C in sizes:
+            plan = bb_plan_for(m, n, 128, C, smem)
+            assert fn.max_clusters(plan) >= 1
+            out = fn.run(c, lo, hi, par, wbx, wax, plan)
+            torch.cuda.synchronize()
+            for f in ref._fields:
+                assert torch.equal(out[f], getattr(ref, f)), (C, f)
+    assert int(first["nlog"].sum()) > lanes_n
+    want = {C: 2 for C in sizes}
+    want[fn.plan(lanes_n).C] += 1
+    assert fn.cluster_sizes == want
+
+
+@pytest.mark.cuda
+def test_fragment_plan_uses_clusters_and_shared_w(cuda_device):
+    """The plan K3's wrapper picks on this card: all of W in shared memory
+    at 2AP20 with one block a lane; at 2AP40 a W slice in shared memory on a
+    cluster of four up to the clusters of four the card holds, never more
+    lanes than clusters at C > 1."""
+    from moip_aira_tpu_torch.solver.cuda_bb import make_cuda_bb_batch
+
+    dev = cuda_device
+    for name, want in (("2AP20.lp", {1: 1, 64: 1, 256: 1}), ("2AP40.lp", {1: 4, 8: 4})):
+        p = read_problem(os.path.join(EX, name))
+        t = lp_tensors(p, dev)
+        fn, _ = make_cuda_bb_batch(t.W_dev, p.is_int, dev, F=8)
+        for lanes_n, C in want.items():
+            plan = fn.plan(lanes_n)
+            assert plan.C == C and plan.w_smem and plan.bi_smem, (name, lanes_n, plan)
+        for lanes_n in range(1, 200):
+            plan = fn.plan(lanes_n)
+            assert plan.C == 1 or lanes_n <= fn.held[plan.C], (name, lanes_n, plan)
+
+
+@pytest.mark.cuda
+def test_fragment_kernel_refuses_a_plan_that_does_not_fit(cuda_device):
+    """A K3 plan whose shared memory, block or cluster the kernel cannot
+    take is refused before the launch and raises; nothing is counted."""
+    from dataclasses import replace
+
+    from moip_aira_tpu_torch.solver.cuda_bb import make_cuda_bb_batch
+
+    p, t, c, lo, hi, par = fragment_lanes("2AP40.lp", cuda_device, 4, seed=5)
+    par[:, 2] = 8
+    fn, _ = make_cuda_bb_batch(t.W_dev, p.is_int, cuda_device, F=8, max_ticks=200)
+    m, nc = t.W_dev.shape
+    wb = torch.full((4, m), -1, dtype=torch.int32, device=cuda_device)
+    wa = torch.zeros((4, nc), dtype=torch.int32, device=cuda_device)
+    plan = fn.plan(4)
+    for bad in (
+        replace(plan, C=1),  # all of W a block: 552 KB
+        replace(plan, threads=48),
+        replace(plan, C=16),
+        replace(plan, bi_smem=False),  # the W slice without B^-1
+    ):
+        with pytest.raises(RuntimeError):
+            fn.run(c, lo, hi, par, wb, wa, bad)
+    assert fn.launches == 0 and not fn.cluster_sizes
 
 
 def random_dp_items(seed, n=24, cap=300):

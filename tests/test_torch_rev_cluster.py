@@ -32,6 +32,9 @@ from moip_aira_tpu_torch.solver.cuda_lp import (
 EX = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
 H100_SMEM = 232_448  # shared bytes an H100 block may opt into
 H100_SMS = 132
+#: clusters of C blocks an H100 holds at once under K2's plans, as
+#: cudaOccupancyMaxActiveClusters reported them (PERF.md §6)
+H100_HELD = {1: 132, 2: 66, 4: 30, 8: 15}
 COST_TOL = 3e-5
 
 
@@ -45,13 +48,13 @@ def shape(name):
 def test_launch_plan_covers_every_column_once_and_fits(name, lanes):
     m, n = shape(name)
     nc = n + m
-    plan = rev_launch_plan(m, n, lanes, H100_SMEM, H100_SMS)
+    plan = rev_launch_plan(m, n, lanes, H100_SMEM, H100_SMS, H100_HELD)
     cols = np.concatenate([np.arange(a, b) for a, b in plan.slices])
     assert np.array_equal(cols, np.arange(nc))
     assert all(b - a >= 1 for a, b in plan.slices)
     assert plan.smem_bytes <= H100_SMEM - STATIC_SMEM_RESERVE
     assert plan.C in (1, 2, 4, 8) and plan.C <= REV_MAX_CLUSTER
-    assert lanes * plan.C <= H100_SMS or plan.C == 1 or plan.w_smem
+    assert lanes <= H100_HELD[plan.C] or plan.C == 1
     assert plan.threads % 32 == 0 and plan.threads <= REV_MAX_THREADS
     assert plan.threads >= min(REV_MAX_THREADS, plan.width, 32 * (-(-m // 32)))
     # B^-1 first, then the W slice, then P1
@@ -59,21 +62,24 @@ def test_launch_plan_covers_every_column_once_and_fits(name, lanes):
 
 
 def test_launch_plan_by_shape_and_lanes():
-    """The smallest cluster whose W slices fit in shared memory while every
-    block has an SM; else as many blocks as keep one SM each."""
+    """The smallest cluster whose W slices fit in shared memory while the
+    card holds a cluster for every lane; else the largest size at which it
+    still holds them all (30 clusters of 4, 15 of 8 on the H100)."""
     m, n = shape("2AP40")  # the slice fits from four blocks on (138 KB)
-    got = [rev_launch_plan(m, n, L, H100_SMEM, H100_SMS) for L in (1, 8, 33, 34, 64, 66, 67, 256)]
-    assert [p.C for p in got] == [4, 4, 4, 2, 2, 2, 1, 1]
-    assert [p.layout for p in got[:4]] == ["B^-1+W+P1"] * 3 + ["B^-1+P1"]
+    got = [rev_launch_plan(m, n, L, H100_SMEM, H100_SMS, H100_HELD)
+           for L in (1, 8, 30, 31, 33, 34, 64, 66, 67, 256)]
+    assert [p.C for p in got] == [4, 4, 4, 2, 2, 2, 2, 2, 1, 1]
+    assert [p.layout for p in got[:5]] == ["B^-1+W+P1"] * 3 + ["B^-1+P1"] * 2
     m, n = shape("2AP100")  # B^-1 alone is 163 KB: the slice never fits
-    got = [rev_launch_plan(m, n, L, H100_SMEM, H100_SMS) for L in (1, 16, 17, 64, 66, 67, 256)]
-    assert [p.C for p in got] == [8, 8, 4, 2, 2, 1, 1]
+    got = [rev_launch_plan(m, n, L, H100_SMEM, H100_SMS, H100_HELD)
+           for L in (1, 15, 16, 17, 30, 31, 64, 66, 67, 256)]
+    assert [p.C for p in got] == [8, 8, 4, 4, 4, 2, 2, 2, 1, 1]
     assert {p.layout for p in got} == {"B^-1"}
     for name in ("2AP20", "G2AP05"):  # W fits whole: one block a lane
         m, n = shape(name)
-        assert rev_launch_plan(m, n, 1, H100_SMEM, H100_SMS).C == 1
+        assert rev_launch_plan(m, n, 1, H100_SMEM, H100_SMS, H100_HELD).C == 1
     with pytest.raises(ValueError):
-        rev_launch_plan(4000, 60000, 1, H100_SMEM, H100_SMS)
+        rev_launch_plan(4000, 60000, 1, H100_SMEM, H100_SMS, H100_HELD)
 
 
 def test_smem_bytes_by_part():
@@ -188,7 +194,7 @@ def test_two_level_argmax_matches_entering(kind, bland):
         if kind == "ties_across_slices":
             in_b[tie_columns(nc, width)] = False
         sc, any_el = scores(d, in_b, at_upper, free, bland)
-        threads = rev_launch_plan(m, n, 1, H100_SMEM, H100_SMS).threads if C == 8 else 512
+        threads = rev_launch_plan(m, n, 1, H100_SMEM, H100_SMS, H100_HELD).threads if C == 8 else 512
         q_plain, _, any_plain = st._entering(
             torch.as_tensor(d)[None], torch.as_tensor(in_b)[None],
             torch.as_tensor(at_upper)[None], torch.as_tensor(free)[None],
@@ -225,4 +231,4 @@ def test_wrapper_on_the_cpu_runs_the_plain_version_only():
     assert (out.status == st.OPTIMAL).all()
     assert k2.launches == 0 and not k2.cluster_sizes
     with pytest.raises(ValueError):
-        k2.run(c, lo, hi, wb, wa, rev_launch_plan(m, n, 2, H100_SMEM, H100_SMS))
+        k2.run(c, lo, hi, wb, wa, rev_launch_plan(m, n, 2, H100_SMEM, H100_SMS, H100_HELD))

@@ -3,7 +3,8 @@
 
 Times K2 on the lanes that chip_smoke.py's phase ``revised`` makes (its
 generator and seed): 2AP40 (82 x 1682) cold and with every other lane warm,
-and 2AP100 (202 x 10202) cold, each on its first 1, 8, 64 and 256 lanes.
+and 2AP100 (202 x 10202) cold, each on its first 1, 8, 31, 64 and 256
+lanes.
 Prints one JSON line per row, after the card's name and power limit:
 
 * ``k2``: the launch the wrapper picks for those lanes; ms per launch (CUDA
@@ -37,7 +38,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SUBSETS = (1, 8, 64, 256)
+#: 31 lanes: one more than the clusters of four the H100 holds at once
+SUBSETS = (1, 8, 31, 64, 256)
 LANES = 256
 CLUSTERS = (1, 2, 4, 8)
 
