@@ -17,7 +17,14 @@ knapsacks — and fails unless every phase passes:
 3. kernels:   K1 against its plain PyTorch version on the card, at 2AP20's
               and G2AP05's LP shapes with 256 lanes (cold and half-warm):
               raw outputs equal bit for bit on every lane, then certified
-              status and objective equal;
+              status and objective equal; each row with the plan K1's
+              wrapper picks (shape: a warp, a block or a cluster of C
+              blocks a lane; C; layout), the launch's largest and mean
+              pivots and us a pivot (ms over the largest).  After phase
+              `real` the same on new cold lanes at the fronts' launch
+              sizes: 2AP20 on 1 lane and on `real`'s mean lanes (a
+              cluster of more than one block, or the phase fails), G3KP10
+              and KP2D50 on their `cli` means;
 4. revised:   K2 against its plain version at 2AP40's LP shape (82 x 1682,
               256 lanes, cold and half-warm) and 2AP100's (202 x 10202, 64
               lanes, cold): K2 on the first 1, 8 and 64 lanes and on all of
@@ -27,16 +34,20 @@ knapsacks — and fails unless every phase passes:
               certify in f64; C, the layout and us a pivot (ms over the
               launch's largest iters);
 5. crossover: K1 and K2 on the same cold lanes at 2AP20's and 2AP40's
-              shapes (256 lanes): both times, and equal certified status
-              and objective.  Phases 3-5 run the kernels at their wrappers'
+              shapes (256 lanes): both times, their largest and mean
+              pivots, K1's plan (2AP40 on a cluster of tableau slices, or
+              the phase fails) and K2's C, and equal certified status and
+              objective.  Phases 3-5 run the kernels at their wrappers'
               pivot cap of 2000; the fronts below take the backend's
               (solver/wave.py MAX_ITERS: 6000 for K2);
 6. cli:       `python -m moip_aira_tpu_torch --backend wave --device cuda`
               on G2AP05, G3AP05, G3KP10 and KP2D50 (all K1), each .out held
               against its golden, with at most 5% of the LPs re-solved on
-              the host;
+              the host; K1's launches by plan shape with their lanes
+              (--stats), a warp a lane on at least one;
 7. real:      the full 2AP20 front (n=400, m=42, K1) through solve_front,
               held against its golden, with the same bound on re-solves;
+              K1's launches by plan shape with their lanes;
 8. wide:      the full 2AP40 front (n=1600, m=82) through solve_front with
               the engine left to the backend (K2, warm starts on), held
               against its golden: K2 launched once per device wave, K1
@@ -405,108 +416,167 @@ def _lanes(problem, rng, front, lanes=LANES):
     return c, lo, hi
 
 
-def phase_kernels(seed):
-    """K1 against dense_lp_batch_ref on the same CUDA inputs."""
+def k1_row(name, p, be, k1, inputs, unscaled, wb, wa, label, rows_kind):
+    """K1 on ``inputs`` against dense_lp_batch_ref on the same CUDA inputs:
+    raw outputs equal bit for bit on every lane, then certified status and
+    objective equal; the launch's plan (shape, C, layout), its largest and
+    mean pivots, us a pivot (ms over the largest: the lane that ends the
+    launch), its time, the plain version's and the bound."""
     import numpy as np
     import torch
 
+    from moip_aira_tpu_torch.solver.simplex_torch import OPTIMAL, dense_lp_batch_ref
+
+    ct, lot, hit = inputs
+    c, lo, hi = unscaled
+    n, m = p.n, p.m_total
+    lanes = int(ct.shape[0])
+    W = k1.W
+    plan = k1.plan(lanes)
+    out_k = k1(ct, lot, hit, wb, wa)
+    out_p = dense_lp_batch_ref(W, ct, lot, hit, wb, wa)
+    torch.cuda.synchronize()
+    assert_bitwise(f"K1 {name} {label} {lanes} lanes ({plan.shape}, C={plan.C})", out_k, out_p)
+    sides = {}
+    for side, out in (("kernel", out_k), ("plain", out_p)):
+        st = out.status.cpu().numpy()
+        f0 = be.verify_fallbacks
+        st_c, objv, _ = be._certify_wave(
+            c, lo, hi, st.copy(), out.basis.cpu().numpy(),
+            out.at_upper.cpu().numpy(),
+        )
+        sides[side] = dict(
+            claim=st, obj32=out.obj.cpu().numpy().astype(np.float64),
+            status=st_c, obj=objv,
+            cert_ok=int(be._last_cert.ok.sum()),
+            resolved=be.verify_fallbacks - f0,
+            iters=out.iters.cpu().numpy(),
+        )
+    K, P = sides["kernel"], sides["plain"]
+    if K["resolved"] > P["resolved"]:
+        raise AssertionError(
+            f"{name} {label}: {K['resolved']} kernel lanes re-solved on "
+            f"the host against the plain version's {P['resolved']}"
+        )
+    if not np.array_equal(K["status"], P["status"]):
+        bad = np.flatnonzero(K["status"] != P["status"])
+        raise AssertionError(
+            f"{name} {label}: certified status differs on lanes {bad[:10]}"
+        )
+    opt = K["status"] == OPTIMAL
+    if not np.allclose(
+        K["obj"][opt], P["obj"][opt], rtol=CERT_RTOL, atol=CERT_RTOL
+    ):
+        raise AssertionError(f"{name} {label}: certified objectives differ")
+    both = (K["claim"] == OPTIMAL) & (P["claim"] == OPTIMAL)
+    err = np.abs(K["obj32"][both] - P["obj32"][both])
+    lim = OBJ_RTOL * np.maximum(1.0, np.abs(P["obj32"][both]))
+    if np.any(err > lim):
+        raise AssertionError(f"{name} {label}: f32 objectives differ")
+    ms = cuda_ms(lambda: k1(ct, lot, hit, wb, wa))
+    plain_ms = cuda_ms(lambda: dense_lp_batch_ref(W, ct, lot, hit, wb, wa))
+    bound_ms, bound_by = bound(
+        "dense_simplex", m, n, K["iters"], int((wb[:, 0] >= 0).sum())
+    )
+    row = {
+        "phase": "kernels",
+        "kernel": "dense_simplex",
+        "instance": name,
+        "start": label,
+        "rows": rows_kind,
+        "m": m,
+        "nc": n + m,
+        "lanes": lanes,
+        "shape": plan.shape,
+        "C": plan.C,
+        "P": plan.P,
+        "layout": plan.layout,
+        "threads": plan.threads,
+        "optimal": int(opt.sum()),
+        "infeasible": int((K["status"] == 1).sum()),
+        "cert_ok_kernel": K["cert_ok"],
+        "cert_ok_plain": P["cert_ok"],
+        "host_resolved_kernel": K["resolved"],
+        "host_resolved_plain": P["resolved"],
+        "mean_iters_kernel": float(K["iters"].mean()),
+        "mean_iters_plain": float(P["iters"].mean()),
+        "max_iters": int(K["iters"].max()),
+        "us_per_pivot": 1e3 * ms / max(1, int(K["iters"].max())),
+        "bitwise_equal": True,
+        "max_abs_err": float(err.max()) if err.size else 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+    emit(row)
+    return row
+
+
+def k1_case(name, dev):
+    """Instance ``name``, a backend that certifies exactly as a wave does
+    (_certify_wave; its own K1 is not used here, so the main path's counts
+    stay clean) and a K1 wrapper of its own."""
     from moip_aira_tpu_torch.convert import lp_tensors
     from moip_aira_tpu_torch.io import read_problem
     from moip_aira_tpu_torch.solver.cuda_lp import make_cuda_lp_batch
-    from moip_aira_tpu_torch.solver.simplex_torch import OPTIMAL, dense_lp_batch_ref
     from moip_aira_tpu_torch.solver.wave import WaveLexBackend
+
+    p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+    be = WaveLexBackend(p, device=dev, fragments=False)
+    return p, be, make_cuda_lp_batch(lp_tensors(p, dev).W_dev, dev)
+
+
+def phase_kernels(seed):
+    """K1 against dense_lp_batch_ref on the same CUDA inputs, at 2AP20's
+    and G2AP05's shapes with 256 lanes, cold and with every other lane
+    warm from the cold launch's bases."""
+    import numpy as np
+    import torch
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(seed)
     rows = []
     for name in KERNEL_SHAPES:
-        p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
-        # the backend certifies exactly as a wave does (_certify_wave); its
-        # own K1 is not used here, so the main path's counts stay clean
-        be = WaveLexBackend(p, device=dev, fragments=False)
-        k1 = make_cuda_lp_batch(lp_tensors(p, dev).W_dev, dev)
-        W = k1.W
+        p, be, k1 = k1_case(name, dev)
         n, m = p.n, p.m_total
-        (ct, lot, hit), (c, lo, hi) = scaled_lanes(
-            p, be._row_scale, rng, name, LANES, dev
-        )
+        inputs, unscaled = scaled_lanes(p, be._row_scale, rng, name, LANES, dev)
         wb_cold, wa_cold = cold_start(LANES, m, n + m, dev)
-        cold = k1(ct, lot, hit, wb_cold, wa_cold)
+        cold = k1(*inputs, wb_cold, wa_cold)
         # half the lanes warm from the bases the kernel's cold pass returned
         warm_rows = torch.arange(LANES, device=dev) % 2 == 0
         wb_warm = torch.where(warm_rows[:, None], cold.basis, -1).contiguous()
         wa_warm = torch.where(warm_rows[:, None], cold.at_upper, 0).contiguous()
         for label, wb, wa in (("cold", wb_cold, wa_cold), ("warm", wb_warm, wa_warm)):
-            out_k = k1(ct, lot, hit, wb, wa)
-            out_p = dense_lp_batch_ref(W, ct, lot, hit, wb, wa)
-            torch.cuda.synchronize()
-            assert_bitwise(f"K1 {name} {label}", out_k, out_p)
-            sides = {}
-            for side, out in (("kernel", out_k), ("plain", out_p)):
-                st = out.status.cpu().numpy()
-                f0 = be.verify_fallbacks
-                st_c, objv, _ = be._certify_wave(
-                    c, lo, hi, st.copy(), out.basis.cpu().numpy(),
-                    out.at_upper.cpu().numpy(),
-                )
-                sides[side] = dict(
-                    claim=st, obj32=out.obj.cpu().numpy().astype(np.float64),
-                    status=st_c, obj=objv,
-                    cert_ok=int(be._last_cert.ok.sum()),
-                    resolved=be.verify_fallbacks - f0,
-                    iters=out.iters.cpu().numpy(),
-                )
-            K, P = sides["kernel"], sides["plain"]
-            if K["resolved"] > P["resolved"]:
-                raise AssertionError(
-                    f"{name} {label}: {K['resolved']} kernel lanes re-solved on "
-                    f"the host against the plain version's {P['resolved']}"
-                )
-            if not np.array_equal(K["status"], P["status"]):
-                bad = np.flatnonzero(K["status"] != P["status"])
-                raise AssertionError(
-                    f"{name} {label}: certified status differs on lanes {bad[:10]}"
-                )
-            opt = K["status"] == OPTIMAL
-            if not np.allclose(
-                K["obj"][opt], P["obj"][opt], rtol=CERT_RTOL, atol=CERT_RTOL
-            ):
-                raise AssertionError(f"{name} {label}: certified objectives differ")
-            both = (K["claim"] == OPTIMAL) & (P["claim"] == OPTIMAL)
-            err = np.abs(K["obj32"][both] - P["obj32"][both])
-            lim = OBJ_RTOL * np.maximum(1.0, np.abs(P["obj32"][both]))
-            if np.any(err > lim):
-                raise AssertionError(f"{name} {label}: f32 objectives differ")
-            ms = cuda_ms(lambda: k1(ct, lot, hit, wb, wa))
-            plain_ms = cuda_ms(lambda: dense_lp_batch_ref(W, ct, lot, hit, wb, wa))
-            bound_ms, bound_by = bound(
-                "dense_simplex", m, n, K["iters"], int((wb[:, 0] >= 0).sum())
-            )
-            row = {
-                "phase": "kernels",
-                "kernel": "dense_simplex",
-                "instance": name,
-                "start": label,
-                "m": m,
-                "nc": n + m,
-                "lanes": LANES,
-                "optimal": int(opt.sum()),
-                "infeasible": int((K["status"] == 1).sum()),
-                "cert_ok_kernel": K["cert_ok"],
-                "cert_ok_plain": P["cert_ok"],
-                "host_resolved_kernel": K["resolved"],
-                "host_resolved_plain": P["resolved"],
-                "mean_iters_kernel": float(K["iters"].mean()),
-                "mean_iters_plain": float(P["iters"].mean()),
-                "bitwise_equal": True,
-                "max_abs_err": float(err.max()) if err.size else 0.0,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-            }
-            emit(row)
-            rows.append(row)
+            rows.append(k1_row(name, p, be, k1, inputs, unscaled, wb, wa, label, "shape"))
+    return rows
+
+
+def phase_kernels_front(seed, front_lanes):
+    """K1 against dense_lp_batch_ref on new cold lanes of each instance of
+    ``front_lanes`` as many as a launch of its front had on average in
+    this run (2AP20 also on one lane): the launches the fronts make, each
+    with the plan K1's wrapper picks for them.  Fails unless the
+    front-size 2AP20 launch runs on a cluster of more than one block."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed + 4)
+    rows = []
+    for name, lanes in front_lanes.items():
+        p, be, k1 = k1_case(name, dev)
+        n, m = p.n, p.m_total
+        (ct, lot, hit), (c, lo, hi) = scaled_lanes(p, be._row_scale, rng, name, lanes, dev)
+        wb, wa = cold_start(lanes, m, n + m, dev)
+        for k in sorted({1, lanes} if name == "2AP20" else {lanes}):
+            rows.append(k1_row(
+                name, p, be, k1, (ct[:k], lot[:k], hit[:k]), (c[:k], lo[:k], hi[:k]),
+                wb[:k], wa[:k], "cold", "front",
+            ))
+    big = [r for r in rows if r["instance"] == "2AP20" and r["lanes"] == front_lanes.get("2AP20")]
+    if not all(r["shape"] == "cluster" and r["C"] > 1 for r in big):
+        raise AssertionError(f"K1's front-size 2AP20 launch did not run on a cluster: {big}")
     return rows
 
 
@@ -815,7 +885,7 @@ def phase_crossover(seed):
             )
             sides[kname] = dict(
                 status=st_c, obj=objv, iters=out.iters.cpu().numpy(),
-                ms=cuda_ms(lambda: kern(ct, lot, hit, wb, wa)),
+                ms=cuda_ms(lambda: kern(ct, lot, hit, wb, wa)), plan=kern.plan(LANES),
             )
         k1, k2 = sides["K1"], sides["K2"]
         if not np.array_equal(k1["status"], k2["status"]):
@@ -835,10 +905,35 @@ def phase_crossover(seed):
             "k2_ms": k2["ms"],
             "k1_mean_iters": float(k1["iters"].mean()),
             "k2_mean_iters": float(k2["iters"].mean()),
+            # a launch lasts as long as its slowest lane
+            "k1_max_iters": int(k1["iters"].max()),
+            "k2_max_iters": int(k2["iters"].max()),
+            "k1_shape": k1["plan"].shape,
+            "k1_C": k1["plan"].C,
+            "k1_layout": k1["plan"].layout,
+            "k2_C": k2["plan"].C,
         }
         emit(row)
         rows.append(row)
+    wide = [r for r in rows if r["instance"] == "2AP40"]
+    if not all(r["k1_shape"] == "cluster" and r["k1_C"] > 1 for r in wide):
+        raise AssertionError(f"K1 at 2AP40 did not run on a cluster of tableau slices: {wide}")
     return rows
+
+
+def lanes_by_plan(rows):
+    """K1's launches as [shape, C, lanes, launches] rows, by "shape C":
+    how many, and the least, mean and largest lanes a launch."""
+    by = {}
+    for shape, C, lanes, k in sorted(rows):
+        d = by.setdefault(f"{shape} {C}", {"launches": 0, "lanes": 0, "min": lanes, "max": lanes})
+        d["launches"] += k
+        d["lanes"] += k * lanes
+        d["min"] = min(d["min"], lanes)
+        d["max"] = max(d["max"], lanes)
+    for d in by.values():
+        d["mean"] = d.pop("lanes") / d["launches"]
+    return by
 
 
 def phase_cli():
@@ -894,10 +989,16 @@ def phase_cli():
                 "lps": stats["lp_count"],
                 "verify_fallbacks": stats["verify_fallbacks"],
                 "launches": launches,
+                "mean_lanes": stats["lp_count"] / max(1, stats["device_waves"]),
+                # K1's launches by plan shape, and by shape and C with lanes
+                "plan_shapes": stats.get("plan_shapes"),
+                "lanes_by_plan": lanes_by_plan(stats.get("launch_lanes", [])),
                 "golden": True,
             }
             emit(row)
             rows.append(row)
+    if not any((r["plan_shapes"] or {}).get("packed") for r in rows):
+        raise AssertionError("K1 ran a warp a lane on no cli instance")
     return rows
 
 
@@ -960,18 +1061,19 @@ def phase_front(phase, name, kernel):
             f"(want {kernel} on each, no other kernel)"
         )
     check_fallbacks(name, be.verify_fallbacks, be.lp_count)
-    k2 = be.lp_kernel
+    kern = be.lp_kernel
+    is_k1 = kern.kernel == "dense_simplex"
     plan_moves = None
-    if hasattr(k2, "launch_lanes"):
+    if not is_k1:
         # the launches whose C this card's cluster count moved: the plan
         # before it read the card assumed a cluster for every C SMs
         from moip_aira_tpu_torch.solver.cuda_lp import rev_launch_plan
 
-        smem, sms = k2.device_limits
-        assumed = {C: sms // C for C in k2.held}
+        smem, sms = kern.device_limits
+        assumed = {C: sms // C for C in kern.held}
         plan_moves = sum(
-            k for (C, lanes), k in k2.launch_lanes.items()
-            if rev_launch_plan(k2.m, k2.n, lanes, smem, sms, assumed).C != C
+            k for (C, lanes), k in kern.launch_lanes.items()
+            if rev_launch_plan(kern.m, kern.n, lanes, smem, sms, assumed).C != C
         )
     row = {
         "phase": phase,
@@ -988,10 +1090,16 @@ def phase_front(phase, name, kernel):
         # K2's launches by cluster size, their lanes, and how many of them
         # the clusters the card holds moved off the C a cluster for every C
         # SMs would give
-        "cluster_sizes": dict(getattr(k2, "cluster_sizes", {})),
-        "lanes_by_C": lanes_by_cluster(getattr(k2, "launch_lanes", {})),
-        "clusters_held": dict(getattr(k2, "held", {})) if plan_moves is not None else None,
+        "cluster_sizes": dict(kern.cluster_sizes),
+        "lanes_by_C": None if is_k1 else lanes_by_cluster(kern.launch_lanes),
+        "clusters_held": dict(getattr(kern, "held", {})) if plan_moves is not None else None,
         "launches_moved_by_held": plan_moves,
+        "mean_lanes": be.lp_count / max(1, be.device_waves),
+        # K1's launches by plan shape, and by shape and C with lanes
+        "plan_shapes": dict(kern.plan_shapes) if is_k1 else None,
+        "lanes_by_plan": lanes_by_plan(
+            [shape, C, n, k] for (shape, C, n), k in kern.launch_lanes.items()
+        ) if is_k1 else None,
         "host_spans_seconds": spans,
         "golden": True,
     }
@@ -1350,8 +1458,14 @@ def main() -> int:
     k1_rows = phase_kernels(args.seed)
     k2_rows = phase_revised(args.seed)
     phase_crossover(args.seed)
-    phase_cli()
+    cli = phase_cli()
     real = phase_front("real", "2AP20", "dense_simplex")
+    # K1 at the lanes a launch of each of its fronts had on average
+    front_lanes = {"2AP20": max(1, round(real["mean_lanes"]))}
+    for r in cli:
+        if r["instance"] in ("G3KP10", "KP2D50"):
+            front_lanes[r["instance"]] = max(1, round(r["mean_lanes"]))
+    k1_rows += phase_kernels_front(args.seed, front_lanes)
     wide = phase_front("wide", "2AP40", "revised_simplex")
     frag = phase_frag_front("frag", "2AP20", 1)
     phase_frag_front("frag3", "G3AP05", 2)

@@ -42,7 +42,9 @@ class FrontResult:
     #: counters of the backend that computed the front: the wave backend's
     #: device_waves, lp_count, verify_fallbacks, the name and
     #: kernel_launches of the kernel that served its device waves (the LP
-    #: kernel, or K3 on the fragment path, which adds its frag_stats); for
+    #: kernel, or K3 on the fragment path, which adds its frag_stats; K1
+    #: adds its launches by plan shape, ``plan_shapes``, and as [shape, C,
+    #: lanes, launches] rows, ``launch_lanes``); for
     #: the knapsack front DP, backend "kp_front", kernel "kp_dp" (K4) with
     #: its launches, the expanded items, the table cells and the engine
     backend_stats: Optional[dict] = None
@@ -68,6 +70,11 @@ def backend_stats(be) -> dict:
     if kernel is not None:
         stats["kernel"] = kernel.kernel
         stats["kernel_launches"] = int(kernel.launches)
+        if hasattr(kernel, "plan_shapes"):  # K1: its launches by plan shape
+            stats["plan_shapes"] = dict(kernel.plan_shapes)
+            stats["launch_lanes"] = sorted(
+                [shape, C, lanes, k] for (shape, C, lanes), k in kernel.launch_lanes.items()
+            )
     return stats
 
 

@@ -9,8 +9,10 @@
   ``csrc/revised_simplex.cu``, plain version
   ``simplex_torch.revised_lp_batch_ref``, wrapper ``make_cuda_rev_batch``.
 
-K1 runs one thread block per LP lane; K2 one cluster of C blocks per lane,
-C and the shared-memory layout chosen per launch by ``rev_launch_plan``.
+K1 runs each LP lane on a warp, a block or a cluster of C blocks, the shape
+chosen per launch by ``dense_launch_plan``; K2 one cluster of C blocks per
+lane, C and the shared-memory layout chosen per launch by
+``rev_launch_plan``.
 Each wrapper returns a
 callable with the unpacked contract of the Pallas builders
 (``pack=False``): ``(c, lo, hi, wb, wa) -> LPOutcome(status, obj, x, basis,
@@ -50,20 +52,35 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _dense_simplex_lib() -> ctypes.CDLL:
-    lib = load("dense_simplex")
+    return _bind_dense(load("dense_simplex"))
+
+
+def _bind_dense(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dense_simplex_tableau_in_smem.argtypes = [ci, ci]
-    lib.dense_simplex_tableau_in_smem.restype = ci
+    pi = ctypes.POINTER(ci)
+    lib.dense_simplex_device_limits.argtypes = [pi, pi]
+    lib.dense_simplex_device_limits.restype = ci
+    lib.dense_simplex_smem_bytes.argtypes = [ci] * 5
+    lib.dense_simplex_smem_bytes.restype = ctypes.c_longlong
+    lib.dense_simplex_max_clusters.argtypes = [ci] * 6
+    lib.dense_simplex_max_clusters.restype = ci
     lib.dense_simplex_launch.argtypes = [
         vp, ci, ci, ci,  # W, m, n, batch
         vp, vp, vp, vp, vp,  # c, lo, hi, wb, wa
         ci, cf, cf, cf,  # max_iters, feas_tol, cost_tol, pivot_tol
-        vp,  # T scratch
+        ci, ci, ci, ci,  # the plan: shape, C, threads, P
         vp, vp, vp, vp, vp, vp,  # status, obj, x, basis, at_upper, iters
         vp,  # stream
     ]
     lib.dense_simplex_launch.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_simplex_variant(defines: tuple) -> ctypes.CDLL:
+    """K1's library built with extra ``-D`` flags (an instrumented variant
+    of tools/k1_bench.py beside the production one)."""
+    return _bind_dense(load("dense_simplex", defines))
 
 
 @functools.lru_cache(maxsize=None)
@@ -233,15 +250,195 @@ def rev_plan_for(m: int, n: int, C: int, smem_bytes: int) -> RevPlan:
     return RevPlan(m, nc, C, min(REV_MAX_THREADS, 32 * -(-want // 32)), w, bi, p1)
 
 
-class CudaLPBatch:
-    """K1: solves batches of LPs over one system matrix ``W`` (m, n + m).
+# K1's limits, as csrc/dense_simplex.cu sets them: threads a block of the
+# block and cluster shapes, blocks a cluster, and the packed shape's rows,
+# columns and lanes a block
+DENSE_MAX_THREADS = 256
+DENSE_MAX_CLUSTER = 8
+DENSE_PACK_ROWS = 32
+DENSE_PACK_COLS = 128
+DENSE_MAX_PACK = 8
+#: lanes (warps) a block of the packed shape
+DENSE_PACK_LANES = 4
+#: the fewest columns a block of a split K1 lane owns: two warps' worth of
+#: columns, so that pricing and the rank-1 update keep at least two warps a
+#: block busy; 2AP20 on 8 blocks of 56 columns ran slower than on 4 of 111
+#: (918 against 835 device µs for one lane, tools/k1_bench.py --sweep)
+DENSE_MIN_SLICE = 64
+#: K1's execution shapes, by their code in csrc/dense_simplex.cu
+DENSE_SHAPES = ("packed", "block", "cluster")
 
-    ``launches`` counts the kernel launches this object made."""
+
+def dense_smem_bytes(shape: str, m: int, nc: int, C: int = 1, P: int = 1) -> int:
+    """A K1 block's dynamic shared bytes (``dense_smem_bytes`` of
+    csrc/dense_simplex.cu).  Packed: P lanes of the tableau (m x nc), c, lo,
+    hi, z (nc each) and three m-vectors as f32, and two nc-byte flag
+    arrays, each lane 16-byte aligned.  Block and cluster: the block's
+    tableau slice (m x ceil(nc / C) f32), c, lo, hi, z, nine m-vectors and
+    the published entering columns (2 C m) as f32, two m-vectors (i32) and
+    the two flag arrays, 16-byte aligned."""
+    if shape == "packed":
+        lane = 4 * (m * nc + 4 * nc + 3 * m) + 2 * nc
+        return P * ((lane + 15) & ~15)
+    w = -(-nc // C)
+    b = 4 * (m * w + 4 * nc + 9 * m + 2 * C * m) + 4 * 2 * m + 2 * nc
+    return (b + 15) & ~15
+
+
+@dataclass(frozen=True)
+class DensePlan:
+    """One K1 launch: the execution shape ("packed": P lanes a block, one
+    warp each; "block": one block of ``threads`` a lane; "cluster": C such
+    blocks a lane, block r owning the tableau's columns [r * width, r *
+    width + width)).  Every shape keeps the lane's tableau in shared
+    memory."""
+
+    m: int
+    nc: int
+    shape: str
+    C: int
+    threads: int
+    P: int = 1
+
+    @property
+    def code(self) -> int:
+        return DENSE_SHAPES.index(self.shape)
+
+    @property
+    def width(self) -> int:
+        """Columns of the tableau a block keeps: nc but on a cluster."""
+        return -(-self.nc // self.C)
+
+    @property
+    def slices(self) -> tuple:
+        w = self.width
+        return tuple((min(self.nc, r * w), min(self.nc, r * w + w)) for r in range(self.C))
+
+    @property
+    def smem_bytes(self) -> int:
+        return dense_smem_bytes(self.shape, self.m, self.nc, self.C, self.P)
+
+    @property
+    def layout(self) -> str:
+        """What a block's shared memory holds: "T" (the lane's tableau),
+        "T/C" (its slice on a cluster of C), "P x T" (P lanes' tableaux)."""
+        if self.shape == "packed":
+            return f"{self.P} x T"
+        return "T" if self.C == 1 else f"T/{self.C}"
+
+    def blocks(self, lanes: int) -> int:
+        return -(-lanes // self.P) if self.shape == "packed" else lanes * self.C
+
+
+def dense_packs(m: int, nc: int) -> bool:
+    """Whether a warp can run the lane: a row for each of its 32 threads and
+    at most four columns each."""
+    return m <= DENSE_PACK_ROWS and nc <= DENSE_PACK_COLS
+
+
+def dense_cluster_sizes(nc: int) -> list:
+    """The clusters a K1 lane of ``nc`` columns may take: 2, 4 and 8 blocks,
+    each keeping at least DENSE_MIN_SLICE columns."""
+    return [C for C in (2, 4, 8) if -(-nc // C) >= DENSE_MIN_SLICE]
+
+
+def dense_plan_for(m: int, n: int, shape: str, C: int, smem_bytes: int,
+                   P: int = DENSE_PACK_LANES) -> DensePlan:
+    """K1's launch of the given shape (and C for "cluster", P lanes a block
+    for "packed") on a card whose blocks may opt into ``smem_bytes`` of
+    shared memory: each thread prices and updates ceil(width /
+    DENSE_MAX_THREADS) of the block's columns, as few threads as spread
+    them evenly (2AP20's 442 columns on a block: 224 threads of two), at
+    least two warps.  Raises ValueError when the shape cannot take the LP
+    or its shared memory does not fit."""
+    nc = n + m
+    cap = smem_bytes - STATIC_SMEM_RESERVE
+    if shape == "packed":
+        if not dense_packs(m, nc) or not 1 <= P <= DENSE_MAX_PACK or C != 1:
+            raise ValueError(f"K1 packs no LP of {m} rows and {nc} columns, {P} a block")
+        plan = DensePlan(m, nc, shape, 1, 32 * P, P)
+    elif shape in ("block", "cluster"):
+        if (shape == "block") != (C == 1) or not 1 <= C <= DENSE_MAX_CLUSTER:
+            raise ValueError(f"K1's {shape} shape takes no cluster of {C}")
+        width = -(-nc // C)
+        per = -(-width // DENSE_MAX_THREADS)  # columns a thread
+        threads = max(64, 32 * -(-width // (32 * per)))
+        plan = DensePlan(m, nc, shape, C, threads)
+    else:
+        raise ValueError(f"K1 has no shape {shape!r}")
+    if plan.smem_bytes > cap:
+        raise ValueError(
+            f"K1's {plan.layout} for {m} rows and {nc} columns needs "
+            f"{plan.smem_bytes} shared bytes, the card gives {cap}"
+        )
+    return plan
+
+
+def dense_launch_plan(m: int, n: int, lanes: int, smem_bytes: int, sms: int, held) -> DensePlan:
+    """K1's launch for ``lanes`` LPs of m rows and n structural columns on a
+    card of ``sms`` SMs whose blocks may opt into ``smem_bytes`` of shared
+    memory and which holds ``held[C]`` clusters of C blocks of K1's cluster
+    plan at once.
+
+    * ``packed`` (a warp a lane) whenever a warp can run the lane
+      (``dense_packs``: G3KP10, KP2D50, G2AP05, G3AP05);
+    * else, when one block holds the tableau, ``cluster`` at the largest C
+      of ``dense_cluster_sizes`` whose slice fits and of which the card
+      holds a cluster for every lane at once (``held[C]``; small slices
+      put several blocks on an SM), else ``block``.  A lane's pivot is a
+      chain of latencies, and a long launch ends with one lane alone on its
+      SMs, where four blocks are fastest (tools/k1_bench.py --sweep on the
+      H100: one 2AP20 lane 835 µs on 4 blocks, 903 on 2, 1,107 on one; 32
+      lanes 934, 984, 1,203; PERF.md §6);
+    * else (2AP40's 552 KB tableau) ``cluster`` at the largest C whose
+      slice fits and at which the card holds every lane (``pick_cluster``
+      with no C preferred); when it holds them at none, the C of the
+      fewest rounds of clusters, the larger C
+      among equals (2AP40's 256 lanes: 30 clusters of four and 30 of eight
+      on the H100, so eight: 45.8 against 59.9 ms of device time by
+      tools/k1_bench.py --sweep).
+
+    Raises ValueError when no shape fits."""
+    nc = n + m
+    lanes = max(lanes, 1)
+    cap = smem_bytes - STATIC_SMEM_RESERVE
+    if dense_packs(m, nc) and dense_smem_bytes("packed", m, nc, 1, DENSE_PACK_LANES) <= cap:
+        return dense_plan_for(m, n, "packed", 1, smem_bytes)
+    fits = [C for C in dense_cluster_sizes(nc) if dense_smem_bytes("cluster", m, nc, C) <= cap]
+    if dense_smem_bytes("block", m, nc) <= cap:
+        C = max([1] + [C for C in fits if lanes <= held.get(C, 0)])
+        if C > 1:
+            return dense_plan_for(m, n, "cluster", C, smem_bytes)
+        return dense_plan_for(m, n, "block", 1, smem_bytes)
+    if not fits:
+        raise ValueError(f"K1 cannot take an LP of {m} rows and {nc} columns")
+    if any(lanes <= min(held.get(C, 0), sms // C) for C in fits):
+        C = pick_cluster(fits, [], lanes, sms, held)
+    else:
+        C = min(fits, key=lambda C: (-(-lanes // max(1, held.get(C, 0))), -C))
+    return dense_plan_for(m, n, "cluster", C, smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_max_clusters(device: int, plan: DensePlan) -> int:
+    with torch.cuda.device(device):
+        got = _dense_simplex_lib().dense_simplex_max_clusters(
+            plan.code, plan.m, plan.nc - plan.m, plan.C, plan.threads, plan.P
+        )
+    if got < 0:
+        raise RuntimeError(f"K1: occupancy of {plan} failed: CUDA error {-got}")
+    return got
+
+
+class _LPBatch:
+    """What K1's and K2's wrappers share: the contract, the input checks,
+    the outputs and the dispatch by device.  ``launches`` counts the kernel
+    launches the object made."""
 
     #: the kernel's name: its csrc/ source, its key in LAUNCHES and the
     #: "kernel" of backend_stats
-    kernel = "dense_simplex"
-    plain = staticmethod(dense_lp_batch_ref)
+    kernel = ""
+    plain = None
 
     def __init__(
         self,
@@ -275,6 +472,14 @@ class CudaLPBatch:
             )
         raise ValueError(f"no {self.kernel} kernel for device {c.device}")
 
+    def run(self, c, lo, hi, wb, wa, plan) -> LPOutcome:
+        """Launch the kernel with the given plan instead of the chosen one
+        (to measure plans against each other); CUDA tensors only."""
+        self._check(c, lo, hi, wb, wa)
+        if c.device.type != "cuda":
+            raise ValueError("a launch plan needs CUDA tensors")
+        return self._launch(c, lo, hi, wb, wa, plan)
+
     def _check(self, c, lo, hi, wb, wa) -> None:
         m, n = self.m, self.n
         B = c.shape[0]
@@ -307,8 +512,69 @@ class CudaLPBatch:
             torch.empty(B, dtype=torch.int32, device=dev),
         )
 
-    def _launch(self, c, lo, hi, wb, wa) -> LPOutcome:
-        lib = _dense_simplex_lib()
+
+class CudaLPBatch(_LPBatch):
+    """K1: solves batches of LPs over one system matrix ``W`` (m, n + m),
+    each launch in the shape ``dense_launch_plan`` picks.  ``plan_shapes``
+    counts this object's launches by shape, ``cluster_sizes`` by C,
+    ``launch_lanes`` by (shape, C, lanes)."""
+
+    kernel = "dense_simplex"
+    plain = staticmethod(dense_lp_batch_ref)
+    #: extra -D flags of the build this object launches (an instrumented
+    #: variant of tools/k1_bench.py; empty in production)
+    defines: tuple = ()
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.plan_shapes: Counter = Counter()
+        self.cluster_sizes: Counter = Counter()
+        self.launch_lanes: Counter = Counter()
+        self._plans = {}  # lanes -> the plan picked for them
+        self._checked = set()  # plans whose byte count the kernel confirmed
+
+    @functools.cached_property
+    def device_limits(self) -> tuple:
+        """(shared bytes a block may opt into, SMs) of this object's card."""
+        smem, sms = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(self.device):
+            err = _dense_simplex_lib().dense_simplex_device_limits(
+                ctypes.byref(smem), ctypes.byref(sms)
+            )
+        if err != 0:
+            raise RuntimeError(f"K1: reading the card's limits failed: CUDA error {err}")
+        return smem.value, sms.value
+
+    @functools.cached_property
+    def held(self) -> dict:
+        """Clusters of each size C the card holds at once under the plan
+        ``dense_plan_for`` gives that C (1: blocks of the block plan), for
+        the shapes whose shared memory fits."""
+        smem, _ = self.device_limits
+        plans = {}
+        for shape, C in [("block", 1)] + [("cluster", C) for C in dense_cluster_sizes(self.n + self.m)]:
+            try:
+                plans[C] = dense_plan_for(self.m, self.n, shape, C, smem)
+            except ValueError:
+                continue
+        return {C: self.max_clusters(plan) for C, plan in plans.items()}
+
+    def plan(self, lanes: int) -> DensePlan:
+        """The launch ``dense_launch_plan`` picks for ``lanes`` lanes here
+        (worked out once per lane count)."""
+        if lanes not in self._plans:
+            smem, sms = self.device_limits
+            held = {} if dense_packs(self.m, self.n + self.m) else self.held
+            self._plans[lanes] = dense_launch_plan(self.m, self.n, lanes, smem, sms, held)
+        return self._plans[lanes]
+
+    def max_clusters(self, plan: DensePlan) -> int:
+        """How many clusters of ``plan`` (blocks, for C = 1) the card holds
+        at once (asked once per plan and device)."""
+        return _dense_max_clusters(self.device.index or 0, plan)
+
+    def _launch(self, c, lo, hi, wb, wa, plan=None) -> LPOutcome:
+        lib = _dense_simplex_variant(self.defines) if self.defines else _dense_simplex_lib()
         m, n = self.m, self.n
         B = c.shape[0]
         dev = self.device
@@ -316,12 +582,15 @@ class CudaLPBatch:
         status, obj, x, basis, at_upper, iters = out
         if B == 0:
             return out
-        where = lib.dense_simplex_tableau_in_smem(m, n)
-        if where < 0:
-            raise ValueError(f"K1 cannot take an LP of {m} rows and {n + m} columns")
-        scratch = None
-        if where == 0:
-            scratch = torch.empty(B, m, n + m, dtype=torch.float32, device=dev)
+        if plan is None:
+            plan = self.plan(B)
+        if (plan.m, plan.nc) != (m, n + m):
+            raise ValueError(f"{plan} is not a plan for {m} rows and {n + m} columns")
+        if plan not in self._checked:
+            kb = lib.dense_simplex_smem_bytes(plan.code, m, n, plan.C, plan.P)
+            if kb != plan.smem_bytes:
+                raise RuntimeError(f"K1 counts {kb} shared bytes for {plan}, the plan {plan.smem_bytes}")
+            self._checked.add(plan)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.dense_simplex_launch(
@@ -329,19 +598,22 @@ class CudaLPBatch:
                 c.data_ptr(), lo.data_ptr(), hi.data_ptr(),
                 wb.data_ptr(), wa.data_ptr(),
                 self.max_iters, self.feas_tol, self.cost_tol, self.pivot_tol,
-                scratch.data_ptr() if scratch is not None else None,
+                plan.code, plan.C, plan.threads, plan.P,
                 status.data_ptr(), obj.data_ptr(), x.data_ptr(),
                 basis.data_ptr(), at_upper.data_ptr(), iters.data_ptr(),
                 stream,
             )
         if err != 0:
-            raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+            raise RuntimeError(f"K1 launch of {plan} failed: CUDA error {err}")
         self.launches += 1
+        self.plan_shapes[plan.shape] += 1
+        self.cluster_sizes[plan.C] += 1
+        self.launch_lanes[plan.shape, plan.C, B] += 1
         LAUNCHES[self.kernel] += 1
         return out
 
 
-class CudaRevBatch(CudaLPBatch):
+class CudaRevBatch(_LPBatch):
     """K2, the revised simplex: the same contract, checks and counter as
     K1's ``CudaLPBatch``, one cluster of blocks per lane as
     ``rev_launch_plan`` says.  ``cluster_sizes`` counts this object's
@@ -387,14 +659,6 @@ class CudaRevBatch(CudaLPBatch):
             self.device.index or 0, self.m, self.n, plan.C, plan.threads,
             plan.w_smem, plan.bi_smem, plan.p1_smem,
         )
-
-    def run(self, c, lo, hi, wb, wa, plan: RevPlan) -> LPOutcome:
-        """Launch K2 with the given plan instead of the chosen one (to
-        measure plans against each other); CUDA tensors only."""
-        self._check(c, lo, hi, wb, wa)
-        if c.device.type != "cuda":
-            raise ValueError("a launch plan needs CUDA tensors")
-        return self._launch(c, lo, hi, wb, wa, plan)
 
     def _launch(self, c, lo, hi, wb, wa, plan=None) -> LPOutcome:
         lib = _revised_simplex_lib()

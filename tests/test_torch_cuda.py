@@ -59,8 +59,9 @@ def lanes(name, dev, seed, count=B):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "name",
-    # 2AP40's tableau (82 x 1682, 552 KB) exceeds shared memory: the
-    # kernel's global-scratch layout
+    # each with the plan K1's wrapper picks for 16 lanes: the tiny LPs a
+    # warp a lane, 2AP20 a cluster of blocks, 2AP40 (82 x 1682, a 552 KB
+    # tableau) a cluster whose slices sit in shared memory
     [
         "G2AP05.lp", "G3KP10.lp", "KP2D50.lp", "moip_2_30_knapsack.mop",
         "2AP20.lp", "2AP40.lp",
@@ -102,6 +103,107 @@ def test_kernel_refuses_tensors_on_another_device(cuda_device):
     with pytest.raises(ValueError):
         k1(*(a.cpu() for a in args), wb, wa)
     assert k1.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,shape,C,P",
+    # every shape each LP allows: a warp a lane (P lanes a block; 13 lanes
+    # leave the last block part empty) for the LPs of at most 32 rows and
+    # 128 columns, a block and clusters of two, four and eight at 2AP20,
+    # clusters of four and eight at 2AP40 (its tableau fits no block)
+    [
+        ("G3KP10.lp", "packed", 1, 4), ("KP2D50.lp", "packed", 1, 4),
+        ("G2AP05.lp", "packed", 1, 1), ("G2AP05.lp", "packed", 1, 4),
+        ("G2AP05.lp", "packed", 1, 8), ("moip_2_30_knapsack.mop", "packed", 1, 4),
+        ("2AP20.lp", "block", 1, 1), ("2AP20.lp", "cluster", 2, 1),
+        ("2AP20.lp", "cluster", 4, 1), ("2AP20.lp", "cluster", 8, 1),
+        ("2AP40.lp", "cluster", 4, 1), ("2AP40.lp", "cluster", 8, 1),
+    ],
+)
+def test_dense_plans_match_plain_bit_for_bit(cuda_device, name, shape, C, P):
+    """K1 through ``run(..., plan)`` in every shape: every raw output of
+    every lane equal to the plain version's, cold and with half the lanes
+    warm from the first launch's bases, one of them singular (it falls back
+    to the cold start)."""
+    from moip_aira_tpu_torch.solver.cuda_lp import dense_plan_for
+
+    dev = cuda_device
+    count = 13
+    t, args = lanes(name, dev, seed=5, count=count)
+    k1 = make_cuda_lp_batch(t.W_dev, dev)
+    m, nc = t.W_dev.shape
+    smem, _ = k1.device_limits
+    plan = dense_plan_for(m, nc - m, shape, C, smem, P)
+    assert k1.max_clusters(plan) >= 1
+    wb = torch.full((count, m), -1, dtype=torch.int32, device=dev)
+    wa = torch.zeros((count, nc), dtype=torch.int32, device=dev)
+    first = k1.run(*args, wb, wa, plan)
+    wb_w = first.basis.clone()
+    wa_w = first.at_upper.clone()
+    wb_w[1::2] = -1
+    wa_w[1::2] = 0
+    wb_w[2] = int(torch.nonzero(t.W_dev[0] == 0)[0])  # one column m times
+    for wbx, wax in ((wb, wa), (wb_w.contiguous(), wa_w.contiguous())):
+        out = k1.run(*args, wbx, wax, plan)
+        ref = st.dense_lp_batch_ref(k1.W, *args, wbx, wax)
+        torch.cuda.synchronize()
+        for f in out._fields:
+            assert torch.equal(getattr(out, f), getattr(ref, f)), (plan, f)
+    assert (first.status == st.OPTIMAL).any()
+    assert k1.launches == 3 and k1.plan_shapes == {shape: 3}
+    assert k1.launch_lanes == {(shape, C, count): 3}
+
+
+@pytest.mark.cuda
+def test_dense_plan_on_this_card(cuda_device):
+    """The plans K1's wrapper picks here: a warp a lane for the tiny LPs, a
+    cluster for a lone 2AP20 lane and a block a lane for 256, a cluster
+    with the tableau's slices in shared memory at 2AP40; no launch of C > 1
+    holds more lanes than the card holds clusters of C."""
+    dev = cuda_device
+    for name in ("G3KP10.lp", "KP2D50.lp", "G2AP05.lp"):
+        t, _ = lanes(name, dev, seed=0, count=2)
+        assert make_cuda_lp_batch(t.W_dev, dev).plan(27).shape == "packed"
+    for name, want in (("2AP20.lp", {1: "cluster", 256: "block"}), ("2AP40.lp", {1: "cluster", 256: "cluster"})):
+        t, _ = lanes(name, dev, seed=0, count=2)
+        k1 = make_cuda_lp_batch(t.W_dev, dev)
+        for lanes_n, shape in want.items():
+            plan = k1.plan(lanes_n)
+            assert plan.shape == shape, (name, lanes_n, plan)
+            assert plan.smem_bytes <= k1.device_limits[0]
+        assert k1.plan(1).C > 1
+        for lanes_n in range(1, 140):
+            plan = k1.plan(lanes_n)
+            assert plan.C == 1 or lanes_n <= k1.held[plan.C] or name == "2AP40.lp", (name, lanes_n, plan)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_refuses_a_plan_that_does_not_fit(cuda_device):
+    """A K1 plan whose shape, shared memory, block or cluster the kernel
+    cannot take is refused before the launch and raises; nothing is
+    counted."""
+    from dataclasses import replace
+
+    from moip_aira_tpu_torch.solver.cuda_lp import DensePlan
+
+    dev = cuda_device
+    t, args = lanes("2AP40.lp", dev, seed=0, count=4)
+    k1 = make_cuda_lp_batch(t.W_dev, dev)
+    m, nc = t.W_dev.shape
+    wb = torch.full((4, m), -1, dtype=torch.int32, device=dev)
+    wa = torch.zeros((4, nc), dtype=torch.int32, device=dev)
+    plan = k1.plan(4)
+    for bad in (
+        replace(plan, C=2),  # half the tableau a block: 276 KB
+        replace(plan, threads=48),
+        replace(plan, C=16),
+        DensePlan(m, nc, "block", 1, 256),  # all of it: 552 KB
+        DensePlan(m, nc, "packed", 1, 128, 4),  # 82 rows on a warp
+    ):
+        with pytest.raises(RuntimeError):
+            k1.run(*args, wb, wa, bad)
+    assert k1.launches == 0 and not k1.plan_shapes
 
 
 @pytest.mark.cuda
