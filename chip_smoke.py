@@ -89,9 +89,27 @@ knapsacks — and fails unless every phase passes:
               ip_count 0, K4 launched once per expanded item and K1-K3
               never.  Then G2KP50 and 2KP100 timed on the DP (dp="on")
               and on the AIRA engine (dp="off", kp_bb on the host), the
-              measurement behind the n >= 80 rule of dp="auto".
+              measurement behind the n >= 80 rule of dp="auto";
+15. lex:      the lex backend (backend="jax", solver/lex_torch.py: plain
+              PyTorch in f64, none of K1-K4) on the card: G2AP05 (the
+              sweep), G3AP05 and G3KP10 with n_workers=2 against their
+              goldens and IPs (24 / 57 / 109), then one call of the lex
+              kernel on 2AP20's 32 lanes (the initial rhs and golden points
+              under both orderings) whose statuses, results and IPs must
+              equal the same call's on the CPU; each row with seconds,
+              batches, lanes, fallbacks, B&B and LP steps, host syncs and
+              us an LP step; at most MAX_FALLBACK_SHARE of lanes may fall
+              back;
+16. mesh:     the twin of __graft_entry__.dryrun_multichip: G3AP05, 6
+              workers, the wave backend with mesh_devices=8 on the card
+              (one domain on a one-card machine), with K1 on every wave and
+              the counts of the reference on one device (111 IPs, 8 rounds,
+              domain_ips [68], pre_ips 43); then the distributed round of
+              the lex kernel on G2AP05 (statuses 0, the front's two ends,
+              their min and max).
 
-Each phase prints one JSON line.  The last two lines are the kernel table
+Each phase prints one JSON line (phases 15-16 with the card's name and
+power limit).  The last two lines are the kernel table
 ({"kernels": [...]}) and {"ok": true, "device": {...}}.  Any failure raises
 and the exit code is not 0.  Run from the root of a checkout:
 
@@ -153,6 +171,13 @@ CERT_RTOL = 1e-7  # certified f64 optima of the same LP from two bases
 # at most this share of a front's device LPs may fail f64 certification and
 # be re-solved on the host (the H100 runs re-solve 0-0.16%)
 MAX_FALLBACK_SHARE = 0.05
+#: the lex backend's fronts (backend="jax", n_workers=2) and their IPs; its
+#: fronts and the lex kernel's batch fail past MAX_FALLBACK_SHARE of their
+#: lanes re-solved on the host
+LEX_FRONTS = (("G2AP05", 24), ("G3AP05", 57), ("G3KP10", 109))
+#: the lex kernel's batch at full width: 2AP20 (n = 400, m = 42, an f64
+#: tableau of 42 x 442 a lane), the reference backend's 32 lanes
+LEX_BATCH = ("2AP20", 32)
 
 
 def emit(obj) -> None:
@@ -329,13 +354,18 @@ def assert_bitwise(label, out_k, out_p):
             )
 
 
-def phase_probe():
-    import torch
-
-    smi = subprocess.run(
+def card():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+
+
+def phase_probe():
+    import torch
+
+    smi = card()
     print(smi, flush=True)
     from moip_aira_tpu_torch.kernels.build import find_nvcc
 
@@ -1436,6 +1466,188 @@ def phase_dp(tmp, plain_fronts):
     return main
 
 
+def lex_batch(p, lanes):
+    """The initial rhs under both orderings, then golden points under the
+    identity and the reversed ordering in turn."""
+    import numpy as np
+
+    k = p.objcnt
+    ident, rev = list(range(k)), list(range(k))[::-1]
+    name = os.path.splitext(os.path.basename(p.filename))[0]
+    gold = golden_front(name).astype(np.float64)
+    rhs, perm = [p.initial_rhs(), p.initial_rhs()], [ident, rev]
+    i = 0
+    while len(rhs) < lanes:
+        rhs.append(gold[i % len(gold)])
+        perm.append(ident if (i // len(gold)) % 2 == 0 else rev)
+        i += 1
+    return np.array(rhs), np.array(perm)
+
+
+def phase_lex():
+    """The lex backend (``backend="jax"``: solver/lex_torch.py, plain
+    PyTorch in f64, no kernel of K1-K4) on the card: three fronts against
+    their goldens and IPs, then one batch of the lex kernel at 2AP20 held
+    against the same call on the CPU."""
+    import numpy as np
+    import torch
+
+    from moip_aira_tpu_torch.api import solve_front
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
+    from moip_aira_tpu_torch.solver.lex_torch import (
+        LEX_RESOURCE, TorchLexBackend, make_lex_kernel,
+    )
+
+    smi = card()
+    rows = []
+    for name, want_ips in LEX_FRONTS:
+        p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+        be = TorchLexBackend(p, device="cuda")
+        if not be.kernel.lp.W.is_cuda:
+            raise AssertionError(f"{name}: the lex kernel's system is not on the card")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        front = solve_front(p, n_workers=2, backend=be, device="cuda", dp="off")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        if not np.array_equal(front.points, golden_front(name)):
+            raise AssertionError(f"{name}: the lex front differs from the golden")
+        if front.ip_count != want_ips:
+            raise AssertionError(f"{name}: {front.ip_count} IPs, want {want_ips}")
+        if any(launches.values()):
+            raise AssertionError(f"{name}: the lex path launched {launches}")
+        if be.fallback_count > MAX_FALLBACK_SHARE * be.lanes:
+            raise AssertionError(
+                f"{name}: {be.fallback_count} of {be.lanes} lanes fell back "
+                f"(limit {MAX_FALLBACK_SHARE:.0%})"
+            )
+        row = {
+            "phase": "lex", "instance": name, "entry": "solve_front",
+            "seconds": seconds, "points": int(front.points.shape[0]),
+            "ips": int(front.ip_count), "rounds": front.rounds,
+            "device_batches": be.device_batches, "lanes": be.lanes,
+            "fallback_count": be.fallback_count, "bnb_steps": be.bnb_steps,
+            "lp_steps": be.lp_steps, "host_syncs": be.host_syncs,
+            "us_per_lp_step": seconds / max(1, be.lp_steps) * 1e6,
+            "golden": True, "card": smi,
+        }
+        emit(row)
+        rows.append(row)
+
+    name, lanes = LEX_BATCH
+    p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+    rhs, perm = lex_batch(p, lanes)
+    outs, times, kerns = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        kern = make_lex_kernel(p, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = kern(rhs, perm)
+        if dev == "cuda":
+            if not all(t.is_cuda for t in out):
+                raise AssertionError("the lex kernel's results left the card")
+            torch.cuda.synchronize()
+        times[dev] = time.perf_counter() - t0
+        outs[dev] = [t.cpu().numpy() for t in out]
+        kerns[dev] = kern
+    if not all(np.array_equal(a, b) for a, b in zip(outs["cuda"], outs["cpu"])):
+        raise AssertionError(f"{name}: the lex kernel on the card differs from the CPU")
+    status = outs["cuda"][0]
+    resource = int((status == LEX_RESOURCE).sum())
+    if resource > MAX_FALLBACK_SHARE * lanes:
+        raise AssertionError(f"{name}: {resource} of {lanes} lanes would fall back")
+    kern = kerns["cuda"]
+    row = {
+        "phase": "lex", "instance": name, "entry": "make_lex_kernel", "lanes": lanes,
+        "seconds": times["cuda"], "cpu_seconds": times["cpu"],
+        "status_counts": np.bincount(status, minlength=4).tolist(),
+        "ips": int(outs["cuda"][2].sum()), "fallback_lanes": resource,
+        "bnb_steps": kern.bnb_steps, "lp_steps": kern.lp_steps,
+        "host_syncs": kern.host_syncs,
+        "us_per_lp_step": times["cuda"] / max(1, kern.lp_steps) * 1e6,
+        "cpu_us_per_lp_step": times["cpu"] / max(1, kerns["cpu"].lp_steps) * 1e6,
+        "equal_to_cpu": True, "card": smi,
+    }
+    emit(row)
+    rows.append(row)
+    return rows
+
+
+def phase_mesh():
+    """The twin of ``__graft_entry__.dryrun_multichip``: G3AP05, 6 workers,
+    the wave backend, ``mesh_devices=8`` on the card (one domain on a
+    one-card machine), with the reference's counts on one device; then the
+    distributed round of the lex kernel on G2AP05."""
+    import numpy as np
+    import torch
+
+    from moip_aira_tpu_torch.api import solve_front
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.parallel.mesh import make_distributed_round, make_mesh
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
+
+    smi = card()
+    p = read_problem(os.path.join(EXAMPLES, "G3AP05.lp"))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    front = solve_front(p, n_workers=6, backend="wave", device="cuda", mesh_devices=8, dp="off")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    stats = front.backend_stats
+    if not np.array_equal(front.points, golden_front("G3AP05")):
+        raise AssertionError("mesh: the G3AP05 front differs from the golden")
+    got = (front.ip_count, front.rounds, front.domain_ips, front.pre_ips)
+    if got != (111, 8, [68], 43):
+        raise AssertionError(f"mesh: (IPs, rounds, domain_ips, pre_ips) {got}")
+    k1 = launches["dense_simplex"]
+    if not (k1 > 0 and k1 == stats["device_waves"]) or any(
+        v for k, v in launches.items() if k != "dense_simplex"
+    ):
+        raise AssertionError(f"mesh: launches {launches} over {stats['device_waves']} waves")
+    emit({
+        "phase": "mesh", "instance": "G3AP05", "entry": "solve_front",
+        "seconds": seconds, "ips": front.ip_count, "rounds": front.rounds,
+        "domain_ips": front.domain_ips, "pre_ips": front.pre_ips,
+        "mesh": stats["mesh"], "waves": stats["device_waves"],
+        "launches": k1, "golden": True, "card": smi,
+    })
+
+    p = read_problem(os.path.join(EXAMPLES, "G2AP05.lp"))
+    mesh = make_mesh(8)
+    step, B = make_distributed_round(p, mesh)
+    k = p.objcnt
+    perms = [list(range(k)), list(range(k))[::-1]]
+    rhs = np.tile(p.initial_rhs(), (B, 1))
+    perm = np.array([perms[i % 2] for i in range(B)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(rhs, perm)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    if not all(t.is_cuda for t in out):
+        raise AssertionError("mesh: the distributed round's results left the card")
+    status, results, all_status, lo, hi = (t.cpu().numpy() for t in out)
+    gold = golden_front("G2AP05")
+    if not ((status == 0).all() and (all_status == 0).all()):
+        raise AssertionError(f"mesh: round statuses {status.tolist()}")
+    if {tuple(r) for r in results} != {tuple(gold[0]), tuple(gold[-1])}:
+        raise AssertionError(f"mesh: round results {results.tolist()}")
+    if lo[0].tolist() != gold.min(0).tolist() or hi[0].tolist() != gold.max(0).tolist():
+        raise AssertionError(f"mesh: lo {lo.tolist()} hi {hi.tolist()}")
+    emit({
+        "phase": "mesh", "instance": "G2AP05", "entry": "make_distributed_round",
+        "mesh_shape": mesh.shape, "lanes": B, "seconds": round_s,
+        "results": results.tolist(), "lo": lo[0].tolist(), "hi": hi[0].tolist(),
+        "card": smi,
+    })
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1478,6 +1690,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         k4_rows, plain_fronts = phase_dp_kernel(tmp)
         dp_main = phase_dp(tmp, plain_fronts)
+    phase_lex()
+    phase_mesh()
     if "jax" in sys.modules or "moip_aira_tpu" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")
 

@@ -1,11 +1,10 @@
 """High-level front computation — the port of ``moip_aira_tpu/api.py``.
 
 Same routing and the same drivers (the knapsack front DP for
-single-capacity bi-objective knapsacks, the bound sweep for k=2, the AIRA
-scheduler otherwise), with the device work (the DP's kernel K4, the wave
-backend's LPs) on the ``device`` given.  What the port does not have yet
-raises NotImplementedError instead of running something else: the ``jax``
-backend and the mesh."""
+single-capacity bi-objective knapsacks, the bound sweep for k=2, the mesh
+scheduler under ``mesh_devices``, the AIRA scheduler otherwise), with the
+device work (the DP's kernel K4, the wave backend's LPs, the lex backend's
+B&B) on the ``device`` given."""
 
 from __future__ import annotations
 
@@ -15,7 +14,9 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
+from moip_aira_tpu_torch.device import resolve_device
 from moip_aira_tpu_torch.engine.scheduler import Scheduler
 from moip_aira_tpu_torch.native import make_solutions
 from moip_aira_tpu_torch.parallel.cluster import build_cluster
@@ -24,7 +25,7 @@ from moip_aira_tpu_torch.parallel.symgroup import max_workers
 from moip_aira_tpu_torch.problem import Problem
 from moip_aira_tpu_torch.sense import INF, Sense
 
-__all__ = ["FrontResult", "make_backend", "solve_front"]
+__all__ = ["FrontResult", "device_mesh", "make_backend", "solve_front"]
 
 #: ``dp="auto"`` tries the knapsack front DP from this many variables on
 DP_MIN_VARS = 80
@@ -46,8 +47,16 @@ class FrontResult:
     #: adds its launches by plan shape, ``plan_shapes``, and as [shape, C,
     #: lanes, launches] rows, ``launch_lanes``); for
     #: the knapsack front DP, backend "kp_front", kernel "kp_dp" (K4) with
-    #: its launches, the expanded items, the table cells and the engine
+    #: its launches, the expanded items, the table cells and the engine;
+    #: for the lex backend ("jax"), its batches, lanes, fallbacks and the
+    #: steps of its B&B and LP loops with the host syncs they took; under a
+    #: mesh also "mesh": its mode, shape and the mesh scheduler's
+    #: exchanged_boxes, carried_boxes and severed
     backend_stats: Optional[dict] = None
+    #: mesh runs only: per-domain IP counts + shared pre-work IPs — on real
+    #: multi-device hardware wall time tracks pre_ips + max(domain_ips)
+    domain_ips: Optional[List[int]] = None
+    pre_ips: int = 0
 
     @property
     def solution_count(self) -> int:
@@ -57,7 +66,11 @@ class FrontResult:
 def backend_stats(be) -> dict:
     """The counters a run reports for backend ``be``."""
     stats = {"backend": getattr(be, "name", type(be).__name__)}
-    for key in ("device_waves", "lp_count", "verify_fallbacks"):
+    for key in (
+        "device_waves", "lp_count", "verify_fallbacks",  # the wave
+        "device_batches", "lanes", "fallback_count",  # the lex backend
+        "bnb_steps", "lp_steps", "host_syncs",
+    ):
         if hasattr(be, key):
             stats[key] = int(getattr(be, key))
     kernel = getattr(be, "lp_kernel", None)
@@ -78,6 +91,16 @@ def backend_stats(be) -> dict:
     return stats
 
 
+def device_mesh(mesh_devices: int, device="cuda"):
+    """The mesh of ``mesh_devices`` domains for work on ``device``: the
+    visible cards for a CUDA device (one domain on a one-card machine), the
+    CPU for the CPU."""
+    from moip_aira_tpu_torch.parallel.mesh import make_mesh
+
+    cpu = resolve_device(device).type == "cpu"
+    return make_mesh(mesh_devices, devices=[torch.device("cpu")] if cpu else None)
+
+
 def make_backend(
     problem: Problem,
     backend="auto",
@@ -91,30 +114,31 @@ def make_backend(
     ``solver_threads`` mirrors the reference's `-c` knob: it scales the
     number of branch-and-bound nodes each MIP contributes to a device wave.
     ``auto`` routes the knapsack family to kp_bb, the assignment family to
-    ap_bb, and everything else to the wave backend on ``device`` — an
-    assignment instance whose objectives are too large for ap_bb's exact
-    matching sums (``ap_bb.blend_safe``) included."""
+    ap_bb, and everything else — an assignment instance whose objectives
+    are too large for ap_bb's exact matching sums (``ap_bb.blend_safe``)
+    included — to the lex backend ("jax") on the CPU and to the wave
+    backend on a card, as the reference routes by platform.
+    ``mesh_devices`` builds the wave's mesh (``device_mesh``)."""
     if not isinstance(backend, str):
         return backend
-    if mesh_devices:
-        raise NotImplementedError(
-            "mesh_devices: the multi-device mesh is not ported yet "
-            "(ROADMAP.md, queue 1, item 4)"
-        )
     npt = max(8, 8 * max(1, solver_threads))
+
+    def wave():
+        from moip_aira_tpu_torch.solver.wave import WaveLexBackend
+
+        mesh = device_mesh(mesh_devices, device) if mesh_devices else None
+        return WaveLexBackend(problem, nodes_per_task=npt, device=device, mesh=mesh)
+
     if backend == "numpy":
         from moip_aira_tpu_torch.solver.lex import NumpyLexBackend
 
         return NumpyLexBackend(problem)
     if backend == "wave":
-        from moip_aira_tpu_torch.solver.wave import WaveLexBackend
-
-        return WaveLexBackend(problem, nodes_per_task=npt, device=device)
+        return wave()
     if backend == "jax":
-        raise NotImplementedError(
-            "backend 'jax': the monolithic device backend (lex_jax) is not "
-            "ported yet (ROADMAP.md, queue 1, item 3)"
-        )
+        from moip_aira_tpu_torch.solver.lex_torch import TorchLexBackend
+
+        return TorchLexBackend(problem, device=device)
     if backend == "kpbb":
         from moip_aira_tpu_torch.solver.kp_bb import KnapsackLexBackend
 
@@ -134,9 +158,11 @@ def make_backend(
         afam = detect_ap_family(problem)
         if afam is not None:
             return APLexBackend(problem, afam)
-        from moip_aira_tpu_torch.solver.wave import WaveLexBackend
+        if resolve_device(device).type == "cpu":
+            from moip_aira_tpu_torch.solver.lex_torch import TorchLexBackend
 
-        return WaveLexBackend(problem, nodes_per_task=npt, device=device)
+            return TorchLexBackend(problem, device=device)
+        return wave()
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -170,8 +196,12 @@ def solve_front(
     decomposition flags only affect how the AIRA engine would have
     parallelised, so they are validated but otherwise moot.
     ``sweep``: the adaptive bound sweep for bi-objective problems on the
-    wave backend ('auto'), forced ('on') or never ('off'); MOIP_SWEEP
-    overrides 'auto'."""
+    batch-parallel backends, wave and jax, without a mesh ('auto'), forced
+    ('on') or never ('off'); MOIP_SWEEP overrides 'auto'.
+    ``mesh_devices`` (without ``split``) runs the mesh scheduler over that
+    many domains (``device_mesh``, or the backend's own mesh), in the mode
+    ``MOIP_MESH_MODE`` names: ``strip`` (the default, EPP strips) or
+    ``sync`` (synergistic workers, at most ``max_workers(k)``)."""
     t_cpu0 = time.process_time()
     t_wall0 = time.monotonic()
     n_workers = max(1, n_workers)
@@ -209,7 +239,8 @@ def solve_front(
         sweep != "off"
         and problem.objcnt == 2
         and not split
-        and getattr(be, "name", "") == "wave"
+        and not mesh_devices
+        and getattr(be, "name", "") in ("wave", "jax")
     ) or sweep == "on"
     if use_sweep:
         from moip_aira_tpu_torch.solver.sweep import sweep_front
@@ -230,6 +261,42 @@ def solve_front(
     k = problem.objcnt
     all_store = make_solutions(k)
     infeasibles = make_solutions(k)
+
+    if mesh_devices and not split:
+        # distributed enumeration: workers partitioned into per-device
+        # domains, cross-domain pruning through the mesh collective
+        from moip_aira_tpu_torch.engine.mesh_scheduler import MeshScheduler
+
+        mesh_mode = os.environ.get("MOIP_MESH_MODE", "strip")
+        if mesh_mode == "sync":
+            # synergistic workers cap at the ordering-subgroup count; EPP
+            # strips (the default) have no such ceiling
+            n_workers = min(n_workers, max_workers(k))
+        msched = MeshScheduler(
+            problem, be,
+            getattr(be, "mesh", None) or device_mesh(mesh_devices, device),
+            mode=mesh_mode,
+        )
+        msched.run(n_workers, spread, all_store)
+        stats = backend_stats(be)
+        stats["mesh"] = {
+            "mode": mesh_mode,
+            "shape": msched.mesh.shape,
+            **{key: getattr(msched, key) for key in (
+                "exchanged_boxes", "carried_boxes", "severed")},
+        }
+        return FrontResult(
+            points=all_store.sorted_unique_points(),
+            ip_count=msched.ip_count,
+            cpu_seconds=time.process_time() - t_cpu0,
+            elapsed_seconds=time.monotonic() - t_wall0,
+            rounds=msched.rounds,
+            batch_sizes=msched.batch_sizes,
+            backend_stats=stats,
+            domain_ips=list(msched.domain_ips),
+            pre_ips=msched.pre_ips,
+        )
+
     if split:
         pts = split_setup(sched, k, n_workers, split_normal, infeasibles)
         # seed ip such that it can never answer a relaxation query

@@ -4,8 +4,9 @@ The flags of ``moip_aira_tpu/cli.py`` (``-p/--lp``, ``-o/--output``,
 ``-t/--threads``, ``-c/--cplex_threads``, ``-s/--spread``, ``--split``,
 ``--split-normal``, ``--backend``, ``--mesh``, ``--dp``, ``--sweep``,
 ``--stats``) plus ``--device {cuda,cpu}``, which says where the device
-work runs: the knapsack front DP (kernel K4) and the wave backend's LPs
-(default cuda; there is no fallback to the CPU).  The ``.out`` file is
+work runs: the knapsack front DP (kernel K4), the wave backend's LPs and
+the lex backend's branch and bound (default cuda; there is no fallback to
+the CPU).  The ``.out`` file is
 written by the byte-equal writer (``io/writer.py``).
 """
 
@@ -57,13 +58,17 @@ def build_argparser() -> argparse.ArgumentParser:
                     default="auto",
                     help="Solve kernel backend (kpbb/apbb = combinatorial "
                     "knapsack/assignment engines; auto routes each detected "
-                    "family there; jax is not ported yet).")
+                    "family there and the rest to jax on the CPU, to wave "
+                    "on a card; jax = the batched lex branch and bound, "
+                    "solver/lex_torch.py).")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="Where the knapsack front DP and the wave backend's "
-                         "LP relaxations run (default cuda).")
+                    help="Where the knapsack front DP, the wave backend's "
+                         "LP relaxations and the jax backend run (default "
+                         "cuda).")
     ap.add_argument("--mesh", dest="mesh", type=int, default=None,
-                    help="Shard solve batches over an N-device mesh (not "
-                         "ported yet).")
+                    help="Partition the workers over an N-device mesh "
+                         "(the mesh scheduler; MOIP_MESH_MODE=strip, the "
+                         "default, or sync); the visible cards, cut to N.")
     ap.add_argument("--dp", choices=("auto", "off"), default="auto",
                     help="Structure-aware full-front dynamic program for "
                          "single-capacity bi-objective knapsacks of 80 or "
@@ -71,8 +76,9 @@ def build_argparser() -> argparse.ArgumentParser:
                          "it; off forces the general AIRA engine).")
     ap.add_argument("--sweep", choices=("auto", "on", "off"), default="auto",
                     help="Adaptive parallel bound sweep for bi-objective "
-                         "fronts (default auto: on for the wave backend; off "
-                         "forces the AIRA ladder).")
+                         "fronts (default auto: on for the wave and jax "
+                         "backends without a mesh; off forces the AIRA "
+                         "ladder).")
     ap.add_argument("--stats", action="store_true", default=False,
                     help="Print scheduler/backend statistics to stderr.")
     ap.add_argument("--version", action="version",

@@ -142,7 +142,12 @@ class WaveLexBackend:
     version on the CPU.  ``fragments`` (True, False or "auto", see
     ``fragments_auto``) turns on the fragment path: each wave runs
     ``frag_nodes``-node B&B subtrees on K3 (stack depth ``frag_depth``),
-    audited on the host."""
+    audited on the host.  ``mesh`` (parallel/mesh.py) is the device mesh
+    the mesh scheduler partitions the workers over: ``batch_width`` must
+    split evenly over its domains, as the reference asks.  While every
+    domain sits on one device the waves launch there as without a mesh; a
+    mesh over more than one card raises NotImplementedError (spreading the
+    waves over cards needs a machine with two)."""
 
     name = "wave"
     #: adaptive drivers may stream requests in via lex_solve_batch(feeder=)
@@ -161,8 +166,21 @@ class WaveLexBackend:
         engine="auto",
         frag_nodes: int = 32,
         frag_depth: int = 128,
+        mesh=None,
     ):
         self.problem = problem
+        self.mesh = mesh
+        if mesh is not None:
+            if batch_width % mesh.size != 0:
+                raise ValueError(
+                    f"batch_width {batch_width} must divide evenly over the "
+                    f"{mesh.size}-device mesh"
+                )
+            if len(set(mesh.domain_devices())) > 1:
+                raise NotImplementedError(
+                    "a wave over a mesh of more than one device: the waves "
+                    "run on one card (ROADMAP.md, queue 1)"
+                )
         #: (stage, obj_j) -> (basis, at_upper) of the most recent finished
         #: node of that stage kind; warms sibling stage ROOTS (_stage_task)
         self._root_basis_cache = {}

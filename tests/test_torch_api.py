@@ -76,19 +76,22 @@ def test_cli_out_matches_reference_cli(tmp_path):
 
 #: (instance, backend) the jax-free run solves: the wave on the bound sweep,
 #: auto, which routes G3AP05 to ap_bb and G3KP10 to kp_bb (both k = 3, so
-#: through the AIRA scheduler), the wave's fragment path on G3AP05, and the
-#: knapsack front DP (dp="on") on G2KP50
+#: through the AIRA scheduler), the wave's fragment path on G3AP05, the
+#: knapsack front DP (dp="on") on G2KP50, the lex backend ("jax") on
+#: G3AP05, and the mesh scheduler (6 workers, the wave, mesh_devices=8) on
+#: G3AP05
 NO_JAX_RUNS = (
     ("G2AP05", "wave"), ("G3AP05", "auto"), ("G3KP10", "auto"),
-    ("G3AP05", "fragments"), ("G2KP50", "dp"),
+    ("G3AP05", "fragments"), ("G2KP50", "dp"), ("G3AP05", "jax"),
+    ("G3AP05", "mesh"),
 )
 
 
 def test_port_runs_without_jax():
     """With ``jax`` and ``moip_aira_tpu`` both unimportable, the port
     reproduces the goldens on every route it has: the wave backend and its
-    fragment path, the AIRA scheduler, the ap_bb and kp_bb engines, and the
-    knapsack front DP."""
+    fragment path, the AIRA scheduler, the ap_bb and kp_bb engines, the
+    knapsack front DP, the lex backend and the mesh scheduler."""
     code = (
         "import json, sys\n"
         "sys.modules['jax'] = None\n"
@@ -99,12 +102,14 @@ def test_port_runs_without_jax():
         "out = {}\n"
         f"for name, backend in {NO_JAX_RUNS!r}:\n"
         f"    p = read_problem({EX!r} + '/' + name + '.lp')\n"
-        "    be, dp = backend, 'auto'\n"
+        "    be, dp, kw = backend, 'auto', {}\n"
         "    if backend == 'fragments':\n"
         "        be = WaveLexBackend(p, device='cpu', fragments=True, batch_width=8)\n"
         "    if backend == 'dp':\n"
         "        be, dp = 'auto', 'on'\n"
-        "    f = solve_front(p, backend=be, device='cpu', dp=dp)\n"
+        "    if backend == 'mesh':\n"
+        "        be, kw = 'wave', dict(n_workers=6, mesh_devices=8)\n"
+        "    f = solve_front(p, backend=be, device='cpu', dp=dp, **kw)\n"
         "    out[name + '/' + backend] = [\n"
         "        f.backend_stats['backend'], f.backend_stats.get('kernel'),\n"
         "        f.points.tolist()]\n"
@@ -124,6 +129,8 @@ def test_port_runs_without_jax():
         "G3KP10/auto": ["kpbb", None],
         "G3AP05/fragments": ["wave", "bb_fragment"],
         "G2KP50/dp": ["kp_front", "kp_dp"],
+        "G3AP05/jax": ["jax", None],
+        "G3AP05/mesh": ["wave", "dense_simplex"],
     }
     for name, backend in NO_JAX_RUNS:
         pts = np.array(got[name + "/" + backend][2])
@@ -160,20 +167,29 @@ def test_port_imports_nothing_of_the_jax_package():
 
 
 def test_unported_paths_raise(tmp_path):
+    """The paths that raised while the port lacked them now run and give
+    the golden front: ``backend="jax"`` (the lex backend), ``mesh_devices``
+    (the mesh scheduler) and the CLI's ``--backend jax`` and ``--mesh``."""
     p = read_problem(os.path.join(EX, "G2AP05.lp"))
+    want = bundled_front("G2AP05")
     # dp="on" on a problem the knapsack DP does not detect takes the AIRA
     # engine
     front = solve_front(p, backend="wave", device="cpu", dp="on")
     assert front.backend_stats["backend"] == "wave" and front.ip_count > 0
-    assert (front.points == bundled_front("G2AP05")).all()
-    with pytest.raises(NotImplementedError):
-        solve_front(p, backend="wave", device="cpu", mesh_devices=2)
-    with pytest.raises(NotImplementedError):
-        solve_front(p, backend="jax", device="cpu")
-    out = tmp_path / "x.out"
+    assert (front.points == want).all()
+    mesh = solve_front(p, backend="wave", device="cpu", mesh_devices=2)
+    assert (mesh.points == want).all()
+    assert mesh.domain_ips and mesh.backend_stats["mesh"]["shape"] == {
+        "workers": 1, "strips": 1,
+    }
+    lex = solve_front(p, backend="jax", device="cpu")
+    assert lex.backend_stats["backend"] == "jax" and (lex.points == want).all()
     ex = os.path.join(EX, "G2AP05.lp")
-    assert port_main(["-p", ex, "-o", str(out), "--backend", "jax"]) == 1
-    assert not out.exists()
+    for flags in (["--backend", "jax"], ["--backend", "wave", "--mesh", "2", "-t", "2"]):
+        out = tmp_path / "x.out"
+        assert port_main(["-p", ex, "-o", str(out), "--device", "cpu"] + flags) == 0
+        assert filtered(out) == filtered(os.path.join(EX, "G2AP05.out"))
+        out.unlink()
 
 
 def test_chip_smoke_imports_only_the_port():

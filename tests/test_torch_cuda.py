@@ -1,5 +1,7 @@
 """K1, K2, K3 and K4, the CUDA kernels, against their plain PyTorch
-versions on the card.
+versions on the card; the lex backend's kernel (plain PyTorch, CUDA graphs
+on the card) against the same call on the CPU, and the mesh of the visible
+cards.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no jax, so on a machine with a card and without jax it runs alone:
@@ -574,3 +576,55 @@ def test_dp_kernel_refuses_bad_items(cuda_device):
     with pytest.raises(ValueError):
         dp(bad, cap, S)
     assert dp.launches == 0
+
+
+def lex_case(name, lanes, seed):
+    """``lanes`` lex requests of ``name``: the initial rhs and golden points
+    moved by -1..1, each under a random ordering."""
+    rng = np.random.default_rng(seed)
+    p = read_problem(os.path.join(EX, f"{name}.lp"))
+    gold = []
+    with open(os.path.join(EX, f"{name}.out")) as fh:
+        for line in fh:
+            parts = line.split()
+            if parts and all(t.lstrip("-").isdigit() for t in parts):
+                gold.append([float(t) for t in parts])
+    gold = np.array(gold)
+    k = p.objcnt
+    rhs = np.array([
+        p.initial_rhs() if b == 0 else gold[rng.integers(len(gold))] + rng.integers(-1, 2, size=k)
+        for b in range(lanes)
+    ])
+    perm = np.array([rng.permutation(k) for _ in range(lanes)])
+    return p, rhs, perm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,lanes", [("G2AP05", 32), ("G3AP05", 32), ("G3KP10", 5)])
+def test_lex_kernel_on_the_card_equals_the_cpu(cuda_device, name, lanes):
+    """The lex kernel (plain PyTorch in f64; on the card each LP step is one
+    CUDA graph) gives the CPU's statuses, results and IPs, twice in a row
+    (the second call replays the captured graphs), and its results stay on
+    the card."""
+    from moip_aira_tpu_torch.solver.lex_torch import make_lex_kernel
+
+    p, rhs, perm = lex_case(name, lanes, seed=3)
+    want = [t.numpy() for t in make_lex_kernel(p, device="cpu")(rhs, perm)]
+    kern = make_lex_kernel(p, device=cuda_device)
+    for _ in range(2):
+        out = kern(rhs, perm)
+        assert all(t.is_cuda for t in out)
+        for a, b in zip(out, want):
+            assert np.array_equal(a.cpu().numpy(), b)
+    assert kern.lp.W.is_cuda and kern.lp_steps > 0
+
+
+@pytest.mark.cuda
+def test_make_mesh_gives_one_domain_a_card(cuda_device):
+    from moip_aira_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(8)
+    cards = torch.cuda.device_count()
+    assert mesh.size == min(8, cards)
+    assert mesh.domain_devices() == [torch.device("cuda", i) for i in range(mesh.size)]
+    assert make_mesh(1).domain_devices() == [torch.device("cuda", 0)]

@@ -30,6 +30,7 @@ from moip_aira_tpu_torch.solver.ap_bb import (
     detect_ap_family,
 )
 from moip_aira_tpu_torch.solver.lex import LexRequest
+from moip_aira_tpu_torch.solver.lex_torch import TorchLexBackend
 from moip_aira_tpu_torch.solver.simplex_batch import solve_lp_batch
 from moip_aira_tpu_torch.solver.simplex_np import SimplexWorkspace, solve_lp
 from moip_aira_tpu_torch.solver.status import SolveStatus
@@ -156,7 +157,9 @@ def test_ap_bb_mixed_sign_matches_brute_force(seed):
 def test_ap_bb_past_the_guard_goes_to_the_wave_backend():
     """Objectives of 2^16 at N = 5: the old detection guard accepted them,
     and the matching engine's magnitude assert then fired mid-solve.  The
-    aligned guard keeps them out of the family, so auto picks the wave."""
+    aligned guard keeps them out of the family, so auto picks the general
+    engine: the lex backend on the CPU (the wave on a card).  Both solve
+    the instance."""
     rng = np.random.default_rng(3)
     N = 5
     C = rng.integers(0, 1 << 16, size=(2, N * N))
@@ -165,12 +168,13 @@ def test_ap_bb_past_the_guard_goes_to_the_wave_backend():
     assert ref_detect_ap_family(ap_problem(C, N, RefProblem, RefSense)) is not None
     assert detect_ap_family(p) is None
     be = make_backend(p, "auto", device="cpu")
-    assert isinstance(be, WaveLexBackend)
+    assert isinstance(be, TorchLexBackend)
     vals = all_values(C, N)
     rhs = np.array([np.inf, float(np.median(vals[:, 1]))])
-    for perm in ([0, 1], [1, 0]):
-        out = be.lex_solve_batch([LexRequest(rhs=rhs, perm=perm)])[0]
-        assert tuple(int(v) for v in out.result) == brute_lex(vals, rhs, perm)
+    for engine in (be, WaveLexBackend(p, device="cpu")):
+        for perm in ([0, 1], [1, 0]):
+            out = engine.lex_solve_batch([LexRequest(rhs=rhs, perm=perm)])[0]
+            assert tuple(int(v) for v in out.result) == brute_lex(vals, rhs, perm)
     # the matching engine itself refuses such a blend with a typed error
     fam = detect_ap_family(ap_problem(C // 256, N))
     assert fam is not None
