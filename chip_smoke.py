@@ -106,14 +106,35 @@ knapsacks — and fails unless every phase passes:
               the counts of the reference on one device (111 IPs, 8 rounds,
               domain_ips [68], pre_ips 43); then the distributed round of
               the lex kernel on G2AP05 (statuses 0, the front's two ends,
-              their min and max).
+              their min and max);
+17. mesh-devices: the wave over a mesh of several devices (solve_front
+              with mesh_devices through the mesh scheduler; one kernel
+              wrapper per device, each wave's lanes split over the devices
+              in proportion to their domains): G3AP05, 6 workers, 8 domains
+              alternating over the card and the host CPU, per-LP (K1 on the
+              card, its plain version on the CPU) and fragments (K3 and
+              its plain version), each with the reference's counts on 8
+              devices (118 IPs, 10 rounds, domain_ips [19, 13, 7, 14, 13,
+              9], pre_ips 43), the golden front, lanes on both devices and
+              K1 (K3) launched on the card once a wave; the G3KP10 front on
+              K1 over a two-domain mesh of the card and the CPU against its
+              golden; then, where two or more cards are visible, the 2AP40
+              front (K2) and the 2AP20 fragment front (K3) over a mesh of
+              the cards, one domain a card, each against its golden and
+              with the counts of the same mesh on one card, with lanes and
+              launches on every card and the host spans
+              wave.device_lp / frag.device_exec of both; with one card, a
+              line that says the cross-card fronts were not run.
 
-Each phase prints one JSON line (phases 15-16 with the card's name and
+Each phase prints one JSON line (phases 15-17 with the card's name and
 power limit).  The last two lines are the kernel table
 ({"kernels": [...]}) and {"ok": true, "device": {...}}.  Any failure raises
 and the exit code is not 0.  Run from the root of a checkout:
 
     python3 chip_smoke.py [--seed N]
+
+``--only mesh-devices`` runs phases 1, 2 and 17 alone (no kernel table),
+to try the multi-device wave on a machine with several cards.
 """
 
 from __future__ import annotations
@@ -1589,13 +1610,17 @@ def phase_mesh():
     from moip_aira_tpu_torch.io import read_problem
     from moip_aira_tpu_torch.parallel.mesh import make_distributed_round, make_mesh
     from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
+    from moip_aira_tpu_torch.solver.wave import WaveLexBackend
 
     smi = card()
     p = read_problem(os.path.join(EXAMPLES, "G3AP05.lp"))
+    # one domain on the first card, as make_mesh(8) gives it on a machine
+    # with one card (phase mesh-devices spreads domains over devices)
+    be = WaveLexBackend(p, device="cuda:0", mesh=make_mesh(8, devices=["cuda:0"]))
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    front = solve_front(p, n_workers=6, backend="wave", device="cuda", mesh_devices=8, dp="off")
+    front = solve_front(p, n_workers=6, backend=be, device="cuda:0", mesh_devices=8, dp="off")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -1648,10 +1673,193 @@ def phase_mesh():
     })
 
 
+#: G3AP05, 6 workers, 8 domains: the JAX package's counts on 8 devices
+#: (IPs, rounds, domain_ips, pre_ips)
+MESH8_COUNTS = (118, 10, [19, 13, 7, 14, 13, 9], 43)
+
+
+def sync_cards():
+    """Wait for every visible card."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_front(name, devs, workers, fragments, want=None, **widths):
+    """The front of ``name`` through solve_front with the wave over a mesh
+    of ``devs`` (one domain each, the first one's device the wave's): the
+    golden front, ``want`` (IPs, rounds, domain_ips, pre_ips) where given,
+    one kernel serving every device wave and no other, lanes on every
+    device of the mesh and kernel launches on every card in it."""
+    import numpy as np
+
+    from moip_aira_tpu_torch.api import solve_front
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.parallel.mesh import make_mesh
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
+    from moip_aira_tpu_torch.solver.wave import WaveLexBackend
+    from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
+
+    p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+    mesh = make_mesh(len(devs), devices=devs)
+    be = WaveLexBackend(p, device=devs[0], mesh=mesh, fragments=fragments, **widths)
+    label = f"{name} on {[str(d) for d in devs]}{' (fragments)' if fragments else ''}"
+    spans0 = dict(GLOBAL_TIMINGS.totals)
+    sync_cards()
+    reset_launches()
+    t0 = time.perf_counter()
+    front = solve_front(
+        p, n_workers=workers, backend=be, device=devs[0], mesh_devices=len(devs), dp="off"
+    )
+    sync_cards()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    spans = {
+        k: v - spans0.get(k, 0.0)
+        for k, v in GLOBAL_TIMINGS.totals.items()
+        if v - spans0.get(k, 0.0) > 0.0
+    }
+    st = front.backend_stats
+    if not np.array_equal(front.points, golden_front(name)):
+        raise AssertionError(f"mesh-devices: {label}: the front differs from the golden")
+    got = (front.ip_count, front.rounds, front.domain_ips, front.pre_ips)
+    if want is not None and got != want:
+        raise AssertionError(f"mesh-devices: {label}: (IPs, rounds, domain_ips, pre_ips) {got}")
+    kernel = st["kernel"]
+    if launches[kernel] != st["kernel_launches"] or any(
+        v for k, v in launches.items() if k != kernel
+    ):
+        raise AssertionError(f"mesh-devices: {label}: launches {launches}, stats {st}")
+    lanes, dev_launches = st["device_lanes"], st["device_launches"]
+    cards = {str(d) for d in devs if d.type == "cuda"}
+    # every device ran lanes, every card launched, and the first device,
+    # which takes the first lanes of every wave, launched once a wave
+    if (
+        set(lanes) != {str(d) for d in devs}
+        or not all(lanes.values())
+        or not all(dev_launches[c] > 0 for c in cards)
+        or (devs[0].type == "cuda" and dev_launches[str(devs[0])] != be.device_waves)
+    ):
+        raise AssertionError(f"mesh-devices: {label}: lanes {lanes}, launches {dev_launches}")
+    fs = be.frag_stats
+    if fragments:
+        if fs.get("req_fallbacks", 0):
+            raise AssertionError(f"mesh-devices: {label}: {fs['req_fallbacks']} requests fell back whole")
+    else:
+        check_fallbacks(label, be.verify_fallbacks, be.lp_count)
+    row = {
+        "phase": "mesh-devices",
+        "instance": name,
+        "devices": [str(d) for d in devs],
+        "fragments": fragments,
+        "engine": be.engine,
+        "seconds": seconds,
+        "ips": front.ip_count,
+        "rounds": front.rounds,
+        "domain_ips": front.domain_ips,
+        "pre_ips": front.pre_ips,
+        "waves": be.device_waves,
+        "lps": be.lp_count,
+        "verify_fallbacks": be.verify_fallbacks,
+        "kernel": kernel,
+        "launches": launches[kernel],
+        "device_lanes": lanes,
+        "device_launches": dev_launches,
+        "records": fs["records"] if fragments else None,
+        "host_recs": fs["host_recs"] if fragments else None,
+        "mesh": st["mesh"],
+        "host_spans_seconds": spans,
+        "golden": True,
+    }
+    emit(row)
+    return row
+
+
+#: what a mesh run must share with the same mesh on one device
+MESH_SAME = ("ips", "rounds", "domain_ips", "pre_ips", "waves", "lps",
+             "verify_fallbacks", "records", "host_recs")
+
+
+def phase_mesh_devices():
+    """The wave over a mesh of several devices: the card and the host CPU
+    on every machine, the visible cards where there are two or more (and
+    the lex kernel's distributed round over them)."""
+    import numpy as np
+    import torch
+
+    smi = card()
+    cpu, card0 = torch.device("cpu"), torch.device("cuda", 0)
+    rows = [
+        mesh_front("G3AP05", [card0, cpu] * 4, 6, fragments, want=MESH8_COUNTS)
+        for fragments in (False, True)
+    ]
+    # at real size, G3KP10 (791 waves, 18,379 LPs on two domains): each
+    # wave waits for the plain K1 on the host's half of its lanes, which
+    # took the 2AP20 front over the card and the CPU 207.5 s on an H100
+    # host (292 waves of about 0.7 s), past the phase's budget
+    rows.append(mesh_front("G3KP10", [card0, cpu], 2, False))
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({
+            "phase": "mesh-devices", "cross_card": False,
+            "why": f"{cards} card visible: the 2AP40 (K2) and 2AP20 fragment "
+                   f"(K3) fronts over a mesh of cards need two or more",
+            "card": smi,
+        })
+        return rows
+    # a power of two of the cards, so that every batch width splits evenly
+    n = 1 << (cards.bit_length() - 1)
+    devs = [torch.device("cuda", i) for i in range(n)]
+    for name, fragments, widths in (
+        ("2AP40", False, {"batch_width": 2048, "nodes_per_task": 32}),
+        ("2AP20", True, {}),
+    ):
+        one = mesh_front(name, [card0] * n, n, fragments, **widths)
+        many = mesh_front(name, devs, n, fragments, **widths)
+        diff = {k: (one[k], many[k]) for k in MESH_SAME if one[k] != many[k]}
+        if diff:
+            raise AssertionError(f"mesh-devices: {name} on {n} cards differs from one card: {diff}")
+        rows += [one, many]
+        emit({
+            "phase": "mesh-devices", "cross_card": True, "instance": name,
+            "cards": n, "fragments": fragments, "same_counts_as_one_card": True,
+            "seconds": [one["seconds"], many["seconds"]],
+            "device_wait_seconds": [
+                r["host_spans_seconds"].get("frag.device_exec" if fragments else "wave.device_lp")
+                for r in (one, many)
+            ],
+            "card": smi,
+        })
+    # the lex kernel's distributed round over the cards (a lex kernel and
+    # its CUDA graphs on each) against the same round on one card
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.parallel.mesh import make_distributed_round, make_mesh
+
+    p = read_problem(os.path.join(EXAMPLES, "G2AP05.lp"))
+    k = p.objcnt
+    outs = []
+    for round_devs in ([card0] * n, devs):
+        step, B = make_distributed_round(p, make_mesh(n, devices=round_devs))
+        rhs = np.tile(p.initial_rhs(), (B, 1))
+        perm = np.array([list(range(k))[:: 1 if i % 2 == 0 else -1] for i in range(B)])
+        outs.append([t.cpu().numpy() for t in step(rhs, perm)])
+    if not all(np.array_equal(a, b) for a, b in zip(*outs)) or (outs[1][0] != 0).any():
+        raise AssertionError(f"mesh-devices: the distributed round over {n} cards: {outs}")
+    emit({
+        "phase": "mesh-devices", "cross_card": True, "instance": "G2AP05",
+        "entry": "make_distributed_round", "cards": n, "lanes": B,
+        "same_as_one_card": True, "results": outs[1][1].tolist(), "card": smi,
+    })
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the kernel phase's LP lanes (default 0)")
+    ap.add_argument("--only", choices=("mesh-devices",),
+                    help="run the probe, the build and this phase alone")
     args = ap.parse_args()
 
     import torch
@@ -1667,6 +1875,9 @@ def main() -> int:
 
     phase_probe()
     phase_build()
+    if args.only == "mesh-devices":
+        phase_mesh_devices()
+        return 0
     k1_rows = phase_kernels(args.seed)
     k2_rows = phase_revised(args.seed)
     phase_crossover(args.seed)
@@ -1692,6 +1903,7 @@ def main() -> int:
         dp_main = phase_dp(tmp, plain_fronts)
     phase_lex()
     phase_mesh()
+    phase_mesh_devices()
     if "jax" in sys.modules or "moip_aira_tpu" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+from collections import Counter
 from typing import List, Optional
 
 import numpy as np
@@ -45,7 +46,9 @@ class FrontResult:
     #: kernel_launches of the kernel that served its device waves (the LP
     #: kernel, or K3 on the fragment path, which adds its frag_stats; K1
     #: adds its launches by plan shape, ``plan_shapes``, and as [shape, C,
-    #: lanes, launches] rows, ``launch_lanes``); for
+    #: lanes, launches] rows, ``launch_lanes``), summed over the devices of
+    #: its mesh, and per device (keyed ``str(device)``) the lanes,
+    #: ``device_lanes``, and kernel launches, ``device_launches``; for
     #: the knapsack front DP, backend "kp_front", kernel "kp_dp" (K4) with
     #: its launches, the expanded items, the table cells and the engine;
     #: for the lex backend ("jax"), its batches, lanes, fallbacks and the
@@ -73,21 +76,38 @@ def backend_stats(be) -> dict:
     ):
         if hasattr(be, key):
             stats[key] = int(getattr(be, key))
-    kernel = getattr(be, "lp_kernel", None)
+    which = "lp_kernel"
     if getattr(be, "fragments", False):
-        kernel = be.frag_kernel
+        which = "frag_kernel"
         fs = be.frag_stats
         stats["fragments"] = {
             k: fs[k] for k in ("records", "host_recs", "reopened", "waves", "ticks")
         }
-    if kernel is not None:
-        stats["kernel"] = kernel.kernel
-        stats["kernel_launches"] = int(kernel.launches)
-        if hasattr(kernel, "plan_shapes"):  # K1: its launches by plan shape
-            stats["plan_shapes"] = dict(kernel.plan_shapes)
+    # the wrappers that served the device waves, by device: one per device
+    # of the wave's mesh, else its one wrapper
+    kernels = getattr(be, which + "s", None)
+    if kernels is None:
+        one = getattr(be, which, None)
+        kernels = {} if one is None else {one.device: one}
+    if kernels:
+        first = next(iter(kernels.values()))
+        stats["kernel"] = first.kernel
+        stats["kernel_launches"] = sum(int(k.launches) for k in kernels.values())
+        if hasattr(first, "plan_shapes"):  # K1: its launches by plan shape
+            by_shape, by_lanes = Counter(), Counter()
+            for k in kernels.values():
+                by_shape.update(k.plan_shapes)
+                by_lanes.update(k.launch_lanes)
+            stats["plan_shapes"] = dict(by_shape)
             stats["launch_lanes"] = sorted(
-                [shape, C, lanes, k] for (shape, C, lanes), k in kernel.launch_lanes.items()
+                [shape, C, lanes, k] for (shape, C, lanes), k in by_lanes.items()
             )
+        if hasattr(be, "device_lanes"):
+            # lanes and launches per device, keyed str(device)
+            stats["device_lanes"] = dict(be.device_lanes)
+            stats["device_launches"] = {
+                str(dev): int(k.launches) for dev, k in kernels.items()
+            }
     return stats
 
 

@@ -132,12 +132,6 @@ size_t bb_scratch_bytes(int m, int nc, bool bi, bool col, bool p1) {
   return round16(b);
 }
 
-int dynamic_smem_cap() {
-  static int cap = -1;
-  if (cap < 0) cap = max_dynamic_smem();
-  return cap;
-}
-
 // word w of the packed at-upper flags: bit k is column PACK * w + k
 __device__ __forceinline__ int pack_word(const unsigned char* atup, int nc,
                                          int w) {
@@ -708,12 +702,12 @@ BBKernel bb_kernel(bool bi, bool w, bool col, int* variant) {
 
 // The plan's launch configuration, after checking it: 0, or the CUDA error
 // the launch would meet.  Each variant's shared-memory limit is raised to
-// the card's opt-in once, on its first use.
+// the card's opt-in once per device, on its first use there.
 int bb_config(int m, int n, int D, int batch, int C, int threads, int bi,
               int w, int col, int p1, cudaStream_t stream,
               cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
               BBKernel* kern) {
-  static bool raised[5] = {};
+  static bool raised[MAX_DEVICES][5] = {};
   const int nc = n + m;
   if (m <= 0 || n < 0 || D <= 0 || batch <= 0 || C < 1 || C > MAX_CLUSTER ||
       threads < 32 || threads > MAX_THREADS || threads % 32 != 0 ||
@@ -724,11 +718,12 @@ int bb_config(int m, int n, int D, int batch, int C, int threads, int bi,
   if (cap <= 0 || bytes > (size_t)cap) return (int)cudaErrorInvalidValue;
   int variant = 0;
   *kern = bb_kernel(bi, w, col, &variant);
-  if (!raised[variant]) {
+  const int slot = device_slot();
+  if (slot < 0 || !raised[slot][variant]) {
     cudaError_t e = cudaFuncSetAttribute(
         *kern, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
     if (e != cudaSuccess) return (int)e;
-    raised[variant] = true;
+    if (slot >= 0) raised[slot][variant] = true;
   }
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3((unsigned)batch * C, 1, 1);

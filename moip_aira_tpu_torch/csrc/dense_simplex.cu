@@ -156,12 +156,6 @@ size_t dense_smem_bytes(int shape, int m, int nc, int C, int P) {
   return block_bytes(m, nc, slice_width(nc, C), C);
 }
 
-int dynamic_smem_cap() {
-  static int cap = -1;
-  if (cap < 0) cap = max_dynamic_smem();
-  return cap;
-}
-
 // ---- reductions -------------------------------------------------------------
 // Each warp reduces by a butterfly (shfl_xor), which leaves the winner in
 // every lane; a block's warps post their winners and every thread then
@@ -1225,11 +1219,11 @@ using K1Kernel = decltype(&dense_simplex_packed);
 
 // The plan's launch configuration, after checking it: 0, or the CUDA error
 // the launch would meet.  Each kernel's shared-memory limit is raised to
-// the card's opt-in once, on its first use.
+// the card's opt-in once per device, on its first use there.
 int dense_config(int shape, int m, int n, int batch, int C, int threads,
                  int P, cudaStream_t stream, cudaLaunchConfig_t* cfg,
                  cudaLaunchAttribute* attr, K1Kernel* kern) {
-  static bool raised[3] = {};
+  static bool raised[MAX_DEVICES][3] = {};
   const int nc = n + m;
   if (m <= 0 || n < 0 || batch <= 0 || shape < 0 || shape > 2)
     return (int)cudaErrorInvalidValue;
@@ -1249,11 +1243,12 @@ int dense_config(int shape, int m, int n, int batch, int C, int threads,
   *kern = shape == SHAPE_PACKED  ? dense_simplex_packed
           : shape == SHAPE_BLOCK ? dense_simplex_kernel<false>
                                  : dense_simplex_kernel<true>;
-  if (!raised[shape]) {
+  const int slot = device_slot();
+  if (slot < 0 || !raised[slot][shape]) {
     cudaError_t e = cudaFuncSetAttribute(
         *kern, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
     if (e != cudaSuccess) return (int)e;
-    raised[shape] = true;
+    if (slot >= 0) raised[slot][shape] = true;
   }
   *cfg = cudaLaunchConfig_t{};
   const int blocks = shape == SHAPE_PACKED ? (batch + P - 1) / P : batch * C;

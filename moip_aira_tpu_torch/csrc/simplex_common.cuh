@@ -119,4 +119,27 @@ int max_dynamic_smem() {
   return optin - STATIC_SMEM_RESERVE;
 }
 
+// A kernel's opt-in shared bytes and the limit cudaFuncSetAttribute raises
+// belong to the current device, so the host side keeps what it reads or
+// raises once per device ordinal; a device past MAX_DEVICES is asked at
+// every launch.
+constexpr int MAX_DEVICES = 64;
+
+// the current device's ordinal when it has a slot below MAX_DEVICES, else -1
+int device_slot() {
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
+    return -1;
+  return dev;
+}
+
+// max_dynamic_smem of the current device, read once per device
+int dynamic_smem_cap() {
+  static int cap[MAX_DEVICES] = {};
+  const int slot = device_slot();
+  if (slot < 0) return max_dynamic_smem();
+  if (cap[slot] <= 0) cap[slot] = max_dynamic_smem();
+  return cap[slot];
+}
+
 }  // namespace

@@ -12,7 +12,9 @@ the port keeps it.
 
 Where the work runs: domains that share one device run as one batch and
 reduce in one op; the results of domains on several cards are gathered onto
-the first domain's card, where the min/max reductions run.
+the first domain's card, where the min/max reductions run.  The wave
+backend (solver/wave.py) spreads each wave's lanes over the same device
+groups (``by_device``), in proportion to their domains (``lane_chunks``).
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ from moip_aira_tpu_torch.problem import Problem
 BIGVAL = float(2**52)
 
 __all__ = [
-    "BIGVAL", "Mesh", "gather_order", "make_bound_exchange",
-    "make_distributed_round", "make_mesh", "shard_batch", "visible_devices",
+    "BIGVAL", "Mesh", "by_device", "gather_order", "lane_chunks",
+    "make_bound_exchange", "make_distributed_round", "make_mesh",
+    "shard_batch", "visible_devices",
 ]
 
 
@@ -114,12 +117,29 @@ def _gather(mesh: Mesh, shards: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([shards[d].to(first) for d in gather_order(mesh)])
 
 
-def _by_device(mesh: Mesh) -> List[Tuple[torch.device, List[int]]]:
-    """Domains grouped by device, each group in domain order."""
+def by_device(mesh: Mesh) -> List[Tuple[torch.device, List[int]]]:
+    """Domains grouped by device, the groups in the order of their first
+    domain, each group in domain order."""
     groups: dict = {}
     for d, dev in enumerate(mesh.domain_devices()):
         groups.setdefault(dev, []).append(d)
     return list(groups.items())
+
+
+def lane_chunks(lanes: int, weights: Sequence[int]) -> List[Tuple[int, int]]:
+    """``lanes`` lanes split, in order, into one contiguous ``[start, end)``
+    chunk per weight, each sized in proportion to its weight: chunk i ends
+    at ceil(lanes * (w_0 + ... + w_i) / sum(w)), so each chunk is within one
+    lane of its share, and the first chunks take what the shares leave over
+    (a wave of fewer lanes than chunks fills the first ones)."""
+    total = sum(weights)
+    if total <= 0 or min(weights) <= 0:
+        raise ValueError(f"weights must be positive, got {list(weights)}")
+    edges, acc = [0], 0
+    for w in weights:
+        acc += w
+        edges.append(-(-lanes * acc // total))
+    return list(zip(edges[:-1], edges[1:]))
 
 
 def _extremes(vals: torch.Tensor, valid: torch.Tensor):
@@ -150,7 +170,7 @@ def make_distributed_round(problem: Problem, mesh: Mesh, batch_per_device: int =
     domain's device."""
     from moip_aira_tpu_torch.solver.lex_torch import make_lex_kernel
 
-    groups = _by_device(mesh)
+    groups = by_device(mesh)
     kernels = {dev: make_lex_kernel(problem, device=dev) for dev, _ in groups}
     B = batch_per_device * mesh.size
 

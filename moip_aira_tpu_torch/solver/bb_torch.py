@@ -255,7 +255,11 @@ def fragment_batch_ref(
     obj_int = par[:, 1] > 0.5
     budget = par[:, 2]
     best = par[:, 0].clone()
-    eps_l = torch.where(obj_int, torch.tensor(1e-6, dtype=f32), torch.tensor(1e-9, dtype=f32)).to(dev)
+    # both scalars on the lanes' card: torch.where with CPU scalar tensors
+    # runs on the current card, which need not be theirs
+    eps_l = torch.where(
+        obj_int, torch.tensor(1e-6, dtype=f32, device=dev), torch.tensor(1e-9, dtype=f32, device=dev)
+    )
     bestx = torch.zeros(B, nc, dtype=f32, device=dev)
     zero_i = torch.zeros(B, dtype=i32, device=dev)
     ncnt, depth, stall, niter, titer, ticks = (zero_i.clone() for _ in range(6))

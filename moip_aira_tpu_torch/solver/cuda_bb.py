@@ -246,8 +246,9 @@ class CudaBBBatch:
         cost_tol: float = 3e-5,
         pivot_tol: float = 3e-5,
     ):
-        self.device = torch.device(device)
-        self.W = W_dev.to(device=self.device, dtype=torch.float32).contiguous()
+        self.W = W_dev.to(device=torch.device(device), dtype=torch.float32).contiguous()
+        #: W's device (a CPU named with an index is the CPU all the same)
+        self.device = self.W.device
         self.m, nc = self.W.shape
         self.n = nc - self.m
         self.int_mask = np.asarray(int_mask, dtype=np.float32)[: self.n].copy()

@@ -123,11 +123,15 @@ class DenseLPSolver:
                         start()
                         self._step(static)
                 torch.cuda.current_stream().wait_stream(side)
+                # captured on a stream of this card: torch.cuda.graph's
+                # default capture stream belongs to the card current at the
+                # process's first capture, and capturing another card's
+                # work on it fails
                 start_graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(start_graph):
+                with torch.cuda.graph(start_graph, stream=side):
                     start()
                 step_graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(step_graph):
+                with torch.cuda.graph(step_graph, stream=side):
                     self._step(static)
             self._graphs[B] = (inp, static, start_graph, step_graph)
         inp, static, start_graph, step_graph = self._graphs[B]

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import os
 import warnings
+from collections import Counter
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -43,6 +44,7 @@ from moip_aira_tpu_torch.solver.lex import LexOutcome, LexRequest, NumpyLexBacke
 from moip_aira_tpu_torch.solver.status import SolveStatus
 from moip_aira_tpu_torch.convert import lp_tensors
 from moip_aira_tpu_torch.device import resolve_device
+from moip_aira_tpu_torch.parallel.mesh import by_device, lane_chunks
 from moip_aira_tpu_torch.solver import simplex_torch as sx
 from moip_aira_tpu_torch.solver.cuda_lp import make_cuda_lp_batch, make_cuda_rev_batch
 from moip_aira_tpu_torch.solver.verify import LPVerifier
@@ -144,10 +146,15 @@ class WaveLexBackend:
     ``frag_nodes``-node B&B subtrees on K3 (stack depth ``frag_depth``),
     audited on the host.  ``mesh`` (parallel/mesh.py) is the device mesh
     the mesh scheduler partitions the workers over: ``batch_width`` must
-    split evenly over its domains, as the reference asks.  While every
-    domain sits on one device the waves launch there as without a mesh; a
-    mesh over more than one card raises NotImplementedError (spreading the
-    waves over cards needs a machine with two)."""
+    split evenly over its domains, as the reference asks, and its first
+    domain's device must be ``device``.  The waves run on every device of
+    the mesh, as the reference shards them over its chips: one kernel
+    wrapper per device (``lp_kernels``, ``frag_kernels``, each with W on its
+    device), and each wave's lanes split, in order, into one contiguous
+    chunk per device, sized by the device's domains (``lane_chunks``).  A
+    device with no lane in a wave is not launched.  While every domain sits
+    on one device the waves launch there as without a mesh.
+    ``device_lanes`` counts the lanes each device ran."""
 
     name = "wave"
     #: adaptive drivers may stream requests in via lex_solve_batch(feeder=)
@@ -170,24 +177,30 @@ class WaveLexBackend:
     ):
         self.problem = problem
         self.mesh = mesh
+        self.device = resolve_device(device)
+        #: the devices the waves run on, each with its share of a wave's
+        #: lanes (its domains of the mesh), in the order of their first domain
+        self._groups = [(self.device, 1)]
         if mesh is not None:
             if batch_width % mesh.size != 0:
                 raise ValueError(
                     f"batch_width {batch_width} must divide evenly over the "
                     f"{mesh.size}-device mesh"
                 )
-            if len(set(mesh.domain_devices())) > 1:
-                raise NotImplementedError(
-                    "a wave over a mesh of more than one device: the waves "
-                    "run on one card (ROADMAP.md, queue 1)"
+            first = mesh.domain_devices()[0]
+            if first != self.device:
+                raise ValueError(
+                    f"the wave's device {self.device} is not the device of "
+                    f"the mesh's first domain, {first}"
                 )
+            self._groups = [(dev, len(doms)) for dev, doms in by_device(mesh)]
+        self.device_lanes = Counter({str(dev): 0 for dev, _ in self._groups})
         #: (stage, obj_j) -> (basis, at_upper) of the most recent finished
         #: node of that stage kind; warms sibling stage ROOTS (_stage_task)
         self._root_basis_cache = {}
         self.batch_width = batch_width
         self.nodes_per_task = nodes_per_task
         self.max_nodes = max_nodes
-        self.device = resolve_device(device)
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
         p = problem
@@ -222,7 +235,12 @@ class WaveLexBackend:
         make_kernel = make_cuda_rev_batch if engine == "revised" else make_cuda_lp_batch
         if lp_max_iters is None:
             lp_max_iters = MAX_ITERS[engine]
-        self.lp_kernel = make_kernel(lpt.W_dev, self.device, max_iters=lp_max_iters)
+        #: the LP kernel's wrapper on each device of the waves, W on each
+        self.lp_kernels = {
+            dev: make_kernel(lpt.W_dev, dev, max_iters=lp_max_iters)
+            for dev, _ in self._groups
+        }
+        self.lp_kernel = self.lp_kernels[self.device]
         self._verifier = LPVerifier(lpt.W_np)
         self._ws = None  # lazy SimplexWorkspace for the exact host LPs
         self.verify_fallbacks = 0
@@ -266,6 +284,7 @@ class WaveLexBackend:
         self._host_queue: List = []
         self._host_flush_min = int(os.environ.get("MOIP_HOST_FLUSH", "512"))
         self.frag_kernel = None
+        self.frag_kernels = {}
         if not self.fragments:
             return
         from moip_aira_tpu_torch.solver.cuda_bb import make_cuda_bb_batch
@@ -280,15 +299,18 @@ class WaveLexBackend:
         node_iters = int(
             knobs.get("MOIP_FRAG_NODE_ITERS", str(max(200, 6 * self.m)))
         )
-        self.frag_kernel, self._frag_meta = make_cuda_bb_batch(
-            lpt.W_dev,  # [diag(s) A | -I], as the LP kernels see it
-            np.asarray(self.problem.is_int, dtype=np.float32),
-            self.device,
-            F=frag_nodes,
-            D=frag_depth,
-            node_iters=node_iters,
-            max_ticks=max(max_ticks, 2 * node_iters),
-        )
+        # K3's wrapper on each device of the waves; the meta is the same
+        for dev, _ in self._groups:
+            self.frag_kernels[dev], self._frag_meta = make_cuda_bb_batch(
+                lpt.W_dev,  # [diag(s) A | -I], as the LP kernels see it
+                np.asarray(self.problem.is_int, dtype=np.float32),
+                dev,
+                F=frag_nodes,
+                D=frag_depth,
+                node_iters=node_iters,
+                max_ticks=max(max_ticks, 2 * node_iters),
+            )
+        self.frag_kernel = self.frag_kernels[self.device]
 
     # -- stage plumbing ----------------------------------------------------
     def _assign_struct(self, glo, ghi):
@@ -511,40 +533,75 @@ class WaveLexBackend:
             )
 
     # -- wave submit / complete --------------------------------------------
+    def _wave_parts(self, nb: int):
+        """Where a wave of ``nb`` lanes runs, counted in ``device_lanes``:
+        (device, start, end) for each device with lanes (``lane_chunks``
+        over the device groups), the cards first, so that their kernels run
+        while the host computes the plain versions of the CPU's lanes."""
+        chunks = lane_chunks(nb, [w for _, w in self._groups])
+        parts = [
+            (dev, a, b) for (dev, _), (a, b) in zip(self._groups, chunks) if b > a
+        ]
+        for dev, a, b in parts:
+            self.device_lanes[str(dev)] += b - a
+        return sorted(parts, key=lambda part: part[0].type != "cuda")
+
+    @staticmethod
+    def _upload(a, dt, dev):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(
+            dev, non_blocking=True
+        )
+
+    @staticmethod
+    def _fetch(dev, srcs, dsts) -> list:
+        """Copy one device's outputs ``srcs`` into their host slices
+        ``dsts``: from a card without blocking, returning the event that
+        says they are filled; from the CPU at once, returning none."""
+        if dev.type != "cuda":
+            for d, t in zip(dsts, srcs):
+                d.copy_(t)
+            return []
+        with torch.cuda.device(dev):
+            for d, t in zip(dsts, srcs):
+                d.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+        return [done]
+
     def _device_lp(self, c, lo, hi, wb, wa):
         """Start the device LPs of one wave; returns the host buffers that
-        will hold (status, basis, at_upper) and the event that says they
-        are filled (None on the CPU, where the call is synchronous).
+        will hold (status, basis, at_upper) and the events that say they
+        are filled (one per card the wave runs on; none on the CPU, where
+        the call is synchronous).
 
-        On a GPU nothing here waits for the card: inputs go up, the kernel is
-        queued and the three outputs the host reads come back by asynchronous
-        copies into pinned buffers, so a second wave can be queued behind
-        this one while the host works on an earlier one.  The logical bounds
-        are row-scaled here, as the device system is."""
-        dev = self.device
+        On a GPU nothing here waits for the card: each device's lanes go
+        up, its kernel is queued and the three outputs the host reads come
+        back by asynchronous copies into its rows of pinned buffers, so a
+        second wave can be queued behind this one while the host works on
+        an earlier one.  The logical bounds are row-scaled here, as the
+        device system is."""
         lo = lo.copy()
         hi = hi.copy()
         lo[:, self.n :] *= self._row_scale
         hi[:, self.n :] *= self._row_scale
-
-        def up(a, dt):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(
-                dev, non_blocking=True
+        nb, nc = c.shape
+        parts = self._wave_parts(nb)
+        pin = any(dev.type == "cuda" for dev, _, _ in parts)
+        host = [
+            torch.empty(shape, dtype=torch.int32, pin_memory=pin)
+            for shape in ((nb,), (nb, self.m), (nb, nc))
+        ]
+        done = []
+        up = self._upload
+        for dev, a, b in parts:
+            out = self.lp_kernels[dev](
+                up(c[a:b], np.float32, dev), up(lo[a:b], np.float32, dev),
+                up(hi[a:b], np.float32, dev), up(wb[a:b], np.int32, dev),
+                up(wa[a:b], np.int32, dev),
             )
-
-        out = self.lp_kernel(
-            up(c, np.float32), up(lo, np.float32), up(hi, np.float32),
-            up(wb, np.int32), up(wa, np.int32),
-        )
-        if dev.type != "cuda":
-            return out.status, out.basis, out.at_upper, None
-        host = []
-        for t in (out.status, out.basis, out.at_upper):
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            host.append(h)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(dev))
+            done += self._fetch(
+                dev, (out.status, out.basis, out.at_upper), [h[a:b] for h in host]
+            )
         return (*host, done)
 
     def _submit_wave(self, active: List[_StageTask]):
@@ -648,8 +705,8 @@ class WaveLexBackend:
 
         status_t, basis_t, atup_t, done = out
         with GLOBAL_TIMINGS.span("wave.device_lp"):
-            if done is not None:
-                done.synchronize()
+            for ev in done:
+                ev.synchronize()
             status = status_t.numpy().copy()
             basis_h = basis_t.numpy().copy()
             atup_h = atup_t.numpy().copy()
@@ -854,37 +911,81 @@ class WaveLexBackend:
                 task.nodes.append((child_lo, dn_hi, cb, ca, pb, 0))
 
     # -- fragment waves (whole B&B subtrees per device call) ---------------
+    #: K3's outputs the audit reads, a row per lane
+    FRAG_LANE_KEYS = ("nlog", "fin_basis", "fin_atup", "iters", "lstate", "ticks")
+    #: K3's records compacted into (CAP, .) buffers, one set per device
+    FRAG_RECORD_KEYS = ("lg_cscal", "lg_cbasis", "lg_catup")
+
     def _device_frag(self, c, lo, hi, par, wb, wa):
-        """Start one fragment wave on the device; returns the device outputs,
-        the host buffers that will hold what the audit reads, and the event
-        that says they are filled (None on the CPU, where the call is
-        synchronous).  As for the LP waves, nothing here waits for the card:
-        the copies back are non-blocking into pinned buffers."""
-        dev = self.device
-
-        def up(a, dt):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(
-                dev, non_blocking=True
+        """Start one fragment wave on the devices; returns, for each device
+        with lanes, (device, start, end, its outputs, the host buffers of
+        its compacted records), the host buffers of the per-lane outputs,
+        and the events that say the host buffers are filled (one per card;
+        none on the CPU, where the call is synchronous).  As for the LP
+        waves, nothing here waits for a card: the copies back are
+        non-blocking into pinned buffers."""
+        nb = c.shape[0]
+        parts = self._wave_parts(nb)
+        pin = any(dev.type == "cuda" for dev, _, _ in parts)
+        host: Dict[str, torch.Tensor] = {}
+        groups, done = [], []
+        up = self._upload
+        for dev, a, b in parts:
+            out = self.frag_kernels[dev](
+                up(c[a:b], np.float32, dev), up(lo[a:b], np.float32, dev),
+                up(hi[a:b], np.float32, dev), up(par[a:b], np.float32, dev),
+                up(wb[a:b], np.int32, dev), up(wa[a:b], np.int32, dev),
             )
+            if not host:
+                host = {
+                    k: torch.empty(
+                        (nb,) + tuple(out[k].shape[1:]), dtype=out[k].dtype,
+                        pin_memory=pin,
+                    )
+                    for k in self.FRAG_LANE_KEYS
+                }
+            recs = {
+                k: torch.empty(out[k].shape, dtype=out[k].dtype, pin_memory=pin)
+                for k in self.FRAG_RECORD_KEYS
+            }
+            done += self._fetch(
+                dev,
+                [out[k] for k in self.FRAG_LANE_KEYS + self.FRAG_RECORD_KEYS],
+                [host[k][a:b] for k in self.FRAG_LANE_KEYS]
+                + [recs[k] for k in self.FRAG_RECORD_KEYS],
+            )
+            groups.append((dev, a, b, out, recs))
+        return sorted(groups, key=lambda g: g[1]), host, done
 
-        out = self.frag_kernel(
-            up(c, np.float32), up(lo, np.float32), up(hi, np.float32),
-            up(par, np.float32), up(wb, np.int32), up(wa, np.int32),
+    def _frag_logs(self, nl, out, recs):
+        """One device's lanes' logs as (lanes, F, .) arrays (scalars, bases,
+        packed at-upper flags), from its compacted records, or from its full
+        logs (still on its device) when it logged more records than the
+        compacted buffers hold."""
+        F_ = self._frag_meta["F"]
+        cap = self._frag_meta["cap"]
+        if int(nl.sum()) > cap:
+            self.frag_stats["cap_overflow"] = (
+                self.frag_stats.get("cap_overflow", 0) + 1
+            )
+            if self.frag_stats["cap_overflow"] == 2:
+                warnings.warn(
+                    f"fragment record compaction overflowed twice "
+                    f"(records > CAP={cap}); each such wave reads the full "
+                    f"logs — raise MOIP_FRAG_CAP for this workload",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
+            return tuple(out[k].cpu().numpy() for k in ("lg_scal", "lg_basis", "lg_atup"))
+        # rebuild the (lanes, F, .) layout from the dense records
+        off = np.cumsum(nl) - nl
+        rows = off[:, None] + np.arange(F_)[None, :]
+        valid = np.arange(F_)[None, :] < nl[:, None]
+        rows = np.where(valid, rows, 0)
+        return tuple(
+            np.where(valid[:, :, None], recs[k].numpy()[rows], fill)
+            for k, fill in zip(self.FRAG_RECORD_KEYS, (0.0, 0, 0))
         )
-        keys = (
-            "nlog", "lg_cscal", "lg_cbasis", "lg_catup", "fin_basis",
-            "fin_atup", "iters", "lstate", "ticks",
-        )
-        if dev.type != "cuda":
-            return out, {k: out[k] for k in keys}, None
-        host = {}
-        for k in keys:
-            h = torch.empty(out[k].shape, dtype=out[k].dtype, pin_memory=True)
-            h.copy_(out[k], non_blocking=True)
-            host[k] = h
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(dev))
-        return out, host, done
 
     def _submit_frag_wave(self, active: List[_StageTask]):
         """Gather open nodes as FRAGMENT ROOTS — each lane runs a whole
@@ -964,42 +1065,22 @@ class WaveLexBackend:
         from moip_aira_tpu_torch.solver.heuristics import candidate_value
         from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
 
-        wave, nb, (out, host, done) = submitted
+        wave, nb, (groups, host, done) = submitted
         with GLOBAL_TIMINGS.span("frag.device_exec"):
-            # the host waiting on the card, apart from reading the buffers
-            if done is not None:
-                done.synchronize()
+            # the host waiting on the cards, apart from reading the buffers
+            for ev in done:
+                ev.synchronize()
         with GLOBAL_TIMINGS.span("wave.device_frag"):
             h = {k: v.numpy() for k, v in host.items()}
             F_ = self._frag_meta["F"]
-            cap = self._frag_meta["cap"]
             nl = np.minimum(h["nlog"], F_).astype(np.int64)
-            if int(nl.sum()) > cap:
-                # more records than the compacted buffers hold: read the full
-                # logs (still on the device)
-                self.frag_stats["cap_overflow"] = (
-                    self.frag_stats.get("cap_overflow", 0) + 1
-                )
-                if self.frag_stats["cap_overflow"] == 2:
-                    warnings.warn(
-                        f"fragment record compaction overflowed twice "
-                        f"(records > CAP={cap}); each such wave reads the full "
-                        f"logs — raise MOIP_FRAG_CAP for this workload",
-                        RuntimeWarning,
-                        stacklevel=2,
-                    )
-                lgs_d = out["lg_scal"].cpu().numpy()
-                lgb_d = out["lg_basis"].cpu().numpy()
-                lga_d = out["lg_atup"].cpu().numpy()
-            else:
-                # rebuild the (nb, F, .) layout from the dense records
-                off = np.cumsum(nl) - nl
-                rows = off[:, None] + np.arange(F_)[None, :]
-                valid = np.arange(F_)[None, :] < nl[:, None]
-                rows = np.where(valid, rows, 0)
-                lgs_d = np.where(valid[:, :, None], h["lg_cscal"][rows], 0.0)
-                lgb_d = np.where(valid[:, :, None], h["lg_cbasis"][rows], 0)
-                lga_d = np.where(valid[:, :, None], h["lg_catup"][rows], 0)
+            # each device's logs, merged in lane order
+            logs = [self._frag_logs(nl[a:b], out, recs) for _, a, b, out, recs in groups]
+            lgs_d, lgb_d, lga_d = (np.concatenate(parts) for parts in zip(*logs))
+            # lanes that ran on a card (K3) and not on its plain version
+            on_card = np.zeros(nb, dtype=bool)
+            for dev, a, b, _, _ in groups:
+                on_card[a:b] = dev.type == "cuda"
         self.frag_stats["ticks"] += int(h["ticks"].max())
         it_nb = h["iters"]
         self.frag_stats["dev_iters"] += int(it_nb.sum())
@@ -1041,7 +1122,7 @@ class WaveLexBackend:
                 )
                 if sane:
                     rep = bb_audit.replay_lane(wave[i][1], wave[i][2], recs, nlog)
-                elif self.device.type == "cuda":
+                elif on_card[i]:
                     # K3 wrote a branch record with a column or floor that
                     # cannot be: a kernel fault, never moved to the host
                     raise RuntimeError(

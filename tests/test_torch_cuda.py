@@ -628,3 +628,118 @@ def test_make_mesh_gives_one_domain_a_card(cuda_device):
     assert mesh.size == min(8, cards)
     assert mesh.domain_devices() == [torch.device("cuda", i) for i in range(mesh.size)]
     assert make_mesh(1).domain_devices() == [torch.device("cuda", 0)]
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs (torch.cuda.device_count() < 2)")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+def test_k1_and_k3_raise_their_shared_memory_on_every_card(two_cards):
+    """K1 (block and cluster shapes at 2AP20) and K3 (2AP20, F=32, W in
+    shared memory) launched on cuda:1 after cuda:0: a kernel's shared-memory
+    limit belongs to one card, so each card raises its own, and the second
+    card's launches run bit for bit with the plain version."""
+    from moip_aira_tpu_torch.solver.bb_torch import fragment_batch_ref
+    from moip_aira_tpu_torch.solver.cuda_bb import make_cuda_bb_batch
+    from moip_aira_tpu_torch.solver.cuda_lp import dense_plan_for
+
+    count = 13
+    for dev in two_cards:
+        t, args = lanes("2AP20.lp", dev, seed=5, count=count)
+        k1 = make_cuda_lp_batch(t.W_dev, dev)
+        m, nc = t.W_dev.shape
+        smem, _ = k1.device_limits
+        wb = torch.full((count, m), -1, dtype=torch.int32, device=dev)
+        wa = torch.zeros((count, nc), dtype=torch.int32, device=dev)
+        for shape, C in (("block", 1), ("cluster", 4)):
+            plan = dense_plan_for(m, nc - m, shape, C, smem)
+            out = k1.run(*args, wb, wa, plan)
+            ref = st.dense_lp_batch_ref(k1.W, *args, wb, wa)
+            torch.cuda.synchronize(dev)
+            assert out.status.device == dev
+            for f in out._fields:
+                assert torch.equal(getattr(out, f), getattr(ref, f)), (dev, plan, f)
+        assert k1.launches == 2
+
+        p, t, c, lo, hi, par = fragment_lanes("2AP20.lp", dev, 16, seed=7)
+        par[:, 2] = 32
+        node_iters = max(200, 6 * m)
+        fn, _ = make_cuda_bb_batch(
+            t.W_dev, p.is_int, dev, F=32, D=128, node_iters=node_iters, max_ticks=8192
+        )
+        assert fn.plan(16).w_smem
+        out = fn(c, lo, hi, par)
+        wbx = torch.full((16, m), -1, dtype=torch.int32, device=dev)
+        wax = torch.zeros((16, nc), dtype=torch.int32, device=dev)
+        ref = fragment_batch_ref(
+            fn.W, p.is_int, c, lo, hi, par, wbx, wax, F=32, D=128,
+            node_iters=node_iters, max_ticks=8192,
+        )
+        torch.cuda.synchronize(dev)
+        for f in ref._fields:
+            assert torch.equal(out[f], getattr(ref, f)), (dev, f)
+        assert fn.launches == 1 and int(out["nlog"].sum()) > 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fragments", [False, True], ids=["per-lp", "fragments"])
+def test_wave_over_a_mesh_of_the_card_and_the_host(cuda_device, fragments):
+    """G3AP05, 6 workers, 8 domains alternating over the card and the CPU:
+    each wave's lanes split between K1 (or K3) on the card and the plain
+    version on the CPU, with the CPU-only mesh's front and counts (the
+    reference's on 8 devices) and lanes on both devices."""
+    from moip_aira_tpu_torch.api import solve_front
+    from moip_aira_tpu_torch.parallel.mesh import make_mesh
+    from moip_aira_tpu_torch.solver.wave import WaveLexBackend
+
+    p = read_problem(os.path.join(EX, "G3AP05.lp"))
+    cpu = torch.device("cpu")
+    runs = []
+    for devs in ([cpu] * 8, [cuda_device, cpu] * 4):
+        be = WaveLexBackend(
+            p, device=devs[0], mesh=make_mesh(8, devices=devs), fragments=fragments
+        )
+        front = solve_front(
+            p, n_workers=6, backend=be, device=devs[0], mesh_devices=8, dp="off"
+        )
+        runs.append((be, front))
+    (be0, f0), (be1, f1) = runs
+    assert np.array_equal(f1.points, f0.points)
+    assert (f1.ip_count, f1.rounds, f1.domain_ips, f1.pre_ips) == (
+        118, 10, [19, 13, 7, 14, 13, 9], 43
+    )
+    for key in ("device_waves", "lp_count", "verify_fallbacks"):
+        assert getattr(be1, key) == getattr(be0, key), key
+    if fragments:
+        for key in ("records", "host_recs", "reopened", "lanes"):
+            assert be1.frag_stats[key] == be0.frag_stats[key], key
+    st1 = f1.backend_stats
+    card = str(cuda_device)
+    assert st1["device_lanes"][card] > 0 and st1["device_lanes"]["cpu"] > 0
+    # the card takes the first lanes of every wave; the CPU launches nothing
+    assert st1["device_launches"] == {card: be1.device_waves, "cpu": 0}
+    assert st1["kernel_launches"] == be1.device_waves
+
+
+@pytest.mark.cuda
+def test_distributed_round_over_two_cards_equals_one_card(two_cards):
+    """The lex kernel's distributed round with a domain on each card (a lex
+    kernel, and its CUDA graphs, on each) gives the round of the same mesh
+    on one card."""
+    from moip_aira_tpu_torch.parallel.mesh import make_distributed_round, make_mesh
+
+    p = read_problem(os.path.join(EX, "G2AP05.lp"))
+    k = p.objcnt
+    outs = []
+    for devs in ([two_cards[0]] * 2, list(two_cards)):
+        step, n = make_distributed_round(p, make_mesh(2, devices=devs))
+        rhs = np.tile(p.initial_rhs(), (n, 1))
+        perm = np.array([list(range(k))[:: 1 if i % 2 == 0 else -1] for i in range(n)])
+        outs.append([t.cpu().numpy() for t in step(rhs, perm)])
+    for a, b in zip(*outs):
+        assert np.array_equal(a, b)
+    assert (outs[1][0] == 0).all()

@@ -228,10 +228,16 @@ def test_one_domain_mesh_through_solve_front():
 
 
 def test_wave_refuses_a_mesh_over_two_cards():
+    """A wave on the CPU refuses a mesh over two cards: ``device`` must be
+    the device of the mesh's first domain (a contradiction raises
+    ValueError, and nothing moves to the CPU); and ``batch_width`` must
+    split evenly over the mesh's domains."""
     p = read_problem(f"{EX}/G2AP05.lp")
     two = mesh.make_mesh(devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
     assert two.size == 2
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="first domain"):
         WaveLexBackend(p, device="cpu", mesh=two)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="first domain"):
+        WaveLexBackend(p, device="cpu", mesh=mesh.make_mesh(devices=[torch.device("cpu", 0), CPU]))
+    with pytest.raises(ValueError, match="divide evenly"):
         WaveLexBackend(p, device="cpu", batch_width=255, mesh=cpu_mesh(2))
