@@ -124,9 +124,25 @@ knapsacks — and fails unless every phase passes:
               with the counts of the same mesh on one card, with lanes and
               launches on every card and the host spans
               wave.device_lp / frag.device_exec of both; with one card, a
-              line that says the cross-card fronts were not run.
+              line that says the cross-card fronts were not run;
+18. xla:      the wave's XLA engine (WaveLexBackend(engine="xla"):
+              solver/xla_lp.py, the reference's XLA engine in plain PyTorch,
+              none of K1-K4, CUDA graphs a bucket of lanes) on the card:
+              the G2AP05, G3KP10 and 2AP20 fronts in float32 and G3AP05 in
+              float64 at `real`'s widths, each against its golden, with no
+              kernel launched, graphs captured and at most
+              MAX_FALLBACK_SHARE of its LPs re-solved on the host (or twice
+              the share its CPU run had, XLA_FALLBACK_SHARE); waves, LPs,
+              re-solves, steps, host syncs, graphs and seconds beside K1's
+              for the same front from phases cli and real; then the 256
+              cold 2AP20 lanes of phase kernels and the 256 cold 2AP40 lanes
+              of phase revised through the engine, timed by CUDA events
+              (median of 5) beside K1's and K2's times on the same lanes,
+              and the first XLA_CPU_LANES 2AP20 lanes against the same call
+              on the CPU: equal certified statuses and optima, and how many
+              lanes equal bit for bit.
 
-Each phase prints one JSON line (phases 15-17 with the card's name and
+Each phase prints one JSON line (phases 15-18 with the card's name and
 power limit).  The last two lines are the kernel table
 ({"kernels": [...]}) and {"ok": true, "device": {...}}.  Any failure raises
 and the exit code is not 0.  Run from the root of a checkout:
@@ -134,7 +150,8 @@ and the exit code is not 0.  Run from the root of a checkout:
     python3 chip_smoke.py [--seed N]
 
 ``--only mesh-devices`` runs phases 1, 2 and 17 alone (no kernel table),
-to try the multi-device wave on a machine with several cards.
+to try the multi-device wave on a machine with several cards; ``--only
+xla`` runs phases 1, 2 and 18 alone (without K1's and K2's figures).
 """
 
 from __future__ import annotations
@@ -199,6 +216,22 @@ LEX_FRONTS = (("G2AP05", 24), ("G3AP05", 57), ("G3KP10", 109))
 #: the lex kernel's batch at full width: 2AP20 (n = 400, m = 42, an f64
 #: tableau of 42 x 442 a lane), the reference backend's 32 lanes
 LEX_BATCH = ("2AP20", 32)
+#: the XLA engine's fronts at `real`'s widths: (instance, dtype, n_workers,
+#: the phase whose K1 front it stands beside)
+XLA_FRONTS = (
+    ("G2AP05", "float32", 2, "cli"),
+    ("G3KP10", "float32", 2, "cli"),
+    ("2AP20", "float32", 1, "real"),
+    ("G3AP05", "float64", 2, "cli"),
+)
+#: a front whose CPU run already re-solves more than MAX_FALLBACK_SHARE of
+#: its LPs on the host is held to twice its CPU share (none so far)
+XLA_FALLBACK_SHARE: dict = {}
+#: the XLA engine's batches: (instance, the seed offset of the phase whose
+#: 256 cold lanes it takes: kernels 0, revised 1, and that phase's kernel)
+XLA_BATCHES = (("2AP20", 0, "dense_simplex"), ("2AP40", 1, "revised_simplex"))
+#: the first this many 2AP20 lanes also run on the CPU
+XLA_CPU_LANES = 32
 
 
 def emit(obj) -> None:
@@ -1854,11 +1887,155 @@ def phase_mesh_devices():
     return rows
 
 
+def phase_xla(seed, k1_rows=(), k2_rows=(), k1_fronts=None):
+    """The wave's XLA engine on the card: its fronts against their goldens
+    beside K1's (``k1_fronts``: phase name -> rows), then its batches at
+    K1's and K2's 256-lane shapes beside their kernels (``k1_rows``,
+    ``k2_rows``), and its arithmetic against the CPU's."""
+    import numpy as np
+    import torch
+
+    from moip_aira_tpu_torch.api import solve_front
+    from moip_aira_tpu_torch.convert import lp_tensors
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
+    from moip_aira_tpu_torch.solver.verify import LPVerifier
+    from moip_aira_tpu_torch.solver.wave import WaveLexBackend
+    from moip_aira_tpu_torch.solver.xla_lp import XlaLPBatch
+
+    dev = torch.device("cuda", 0)
+    smi = card()
+    k1_fronts = k1_fronts or {}
+    rows = []
+    torch.cuda.synchronize()
+    reset_launches()
+    for name, dtype, workers, k1_phase in XLA_FRONTS:
+        p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+        be = WaveLexBackend(
+            p, device="cuda", engine="xla", dtype=dtype, fragments=False,
+            batch_width=2048, nodes_per_task=32,
+        )
+        kern = be.lp_kernel
+        if not (kern.kernel == "xla" and kern.W.is_cuda and kern.bucketed):
+            raise AssertionError(f"{name}: the XLA engine is not on the card")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        front = solve_front(p, n_workers=workers, backend=be, device="cuda", dp="off")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not np.array_equal(front.points, golden_front(name)):
+            raise AssertionError(f"{name} ({dtype}): the XLA front differs from the golden")
+        st = front.backend_stats
+        if not (st["kernel"] == "xla" and st["kernel_launches"] == 0 and st["graphs"] > 0):
+            raise AssertionError(f"{name}: XLA engine stats {st}")
+        limit = XLA_FALLBACK_SHARE.get(name, MAX_FALLBACK_SHARE)
+        if be.verify_fallbacks > limit * be.lp_count:
+            raise AssertionError(
+                f"{name} ({dtype}): {be.verify_fallbacks} of {be.lp_count} LPs "
+                f"re-solved on the host (limit {limit:.2%})"
+            )
+        k1 = next(
+            (r for r in k1_fronts.get(k1_phase, ()) if r["instance"] == name), None
+        )
+        row = {
+            "phase": "xla", "instance": name, "dtype": dtype, "workers": workers,
+            "seconds": seconds, "ips": int(front.ip_count),
+            "waves": be.device_waves, "lps": be.lp_count,
+            "verify_fallbacks": be.verify_fallbacks,
+            "steps": st["lp_steps"], "syncs": st["host_syncs"], "graphs": st["graphs"],
+            "mean_lanes": be.lp_count / max(1, be.device_waves),
+            # the host inside the engine's calls, waiting on the card at
+            # every step
+            "lp_seconds": kern.seconds,
+            "us_per_step": 1e6 * kern.seconds / max(1, st["lp_steps"]),
+            "k1": None if k1 is None else {
+                "phase": k1_phase, "seconds": k1["seconds"], "ips": k1["ips"],
+                "waves": k1["waves"], "lps": k1["lps"],
+                "verify_fallbacks": k1["verify_fallbacks"],
+            },
+            "golden": True, "card": smi,
+        }
+        emit(row)
+        rows.append(row)
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"the XLA engine's fronts launched {dict(LAUNCHES)}")
+
+    beside = {"dense_simplex": k1_rows, "revised_simplex": k2_rows}
+    for name, offset, kernel in XLA_BATCHES:
+        p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+        t = lp_tensors(p, dev)
+        # the lanes of the phase that timed the kernel (its first draw)
+        _, (c, lo, hi) = scaled_lanes(
+            p, t.row_scale, np.random.default_rng(seed + offset), name, LANES, dev
+        )
+        args = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (c, lo, hi)]
+        xla = XlaLPBatch(t.W_np, dev, max_iters=2000, max_lanes=LANES)
+        steps0 = xla.steps
+        out = xla(*args)
+        steps = xla.steps - steps0
+        ms = cuda_ms(lambda: xla(*args))
+        iters = out.iters.cpu().numpy()
+        status = out.status.cpu().numpy()
+        cert = LPVerifier(t.W_np).certify(
+            c, lo, hi, status, out.basis.cpu().numpy(),
+            out.at_upper.cpu().numpy().astype(bool),
+        )
+        k_row = next(
+            (r for r in beside[kernel] if r["instance"] == name and r["start"] == "cold"
+             and r["lanes"] == LANES), None,
+        )
+        row = {
+            "phase": "xla", "instance": name, "entry": "XlaLPBatch", "lanes": LANES,
+            "m": p.m_total, "nc": p.n + p.m_total, "ms": ms, "steps": steps,
+            "us_per_step": 1e3 * ms / max(1, steps),
+            "max_iters": int(iters.max()), "mean_iters": float(iters.mean()),
+            "optimal": int((status == 0).sum()), "cert_ok": int(cert.ok.sum()),
+            "graphs": xla.graphs,
+            "kernel": kernel, "kernel_ms": None if k_row is None else k_row["ms"],
+            "kernel_max_iters": None if k_row is None else k_row["max_iters"],
+            "card": smi,
+        }
+        if name == "2AP20":
+            # the same call on the CPU, in XLA's order of float32 sums on
+            # both; the card's addcmul rounds its products, so the pivots
+            # may part, but every certified answer must agree
+            k = XLA_CPU_LANES
+            cpu = XlaLPBatch(t.W_np, "cpu", max_iters=2000)(*(a[:k].cpu() for a in args))
+            certs = [
+                LPVerifier(t.W_np).certify(
+                    c[:k], lo[:k], hi[:k], o.status[:k].cpu().numpy(),
+                    o.basis[:k].cpu().numpy(), o.at_upper[:k].cpu().numpy().astype(bool),
+                )
+                for o in (out, cpu)
+            ]
+            both = certs[0].ok & certs[1].ok
+            st_card, st_cpu = status[:k], cpu.status.numpy()
+            opt = both & (st_card == 0)
+            o_card, o_cpu = certs[0].obj[opt], certs[1].obj[opt]
+            if not (
+                both.sum() >= k // 2
+                and np.array_equal(st_card[both], st_cpu[both])
+                and np.all(np.abs(o_card - o_cpu) <= CERT_RTOL * np.maximum(1.0, np.abs(o_cpu)))
+            ):
+                raise AssertionError(f"XLA engine {name}: the card's certified answers differ from the CPU's")
+            row["cpu_lanes"] = k
+            row["cpu_certified_equal"] = int(both.sum())
+            row["cpu_bitwise_equal_lanes"] = int(sum(
+                all(torch.equal(getattr(out, f)[i].cpu(), getattr(cpu, f)[i]) for f in out._fields)
+                for i in range(k)
+            ))
+        emit(row)
+        rows.append(row)
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"the XLA engine's batches launched {dict(LAUNCHES)}")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the kernel phase's LP lanes (default 0)")
-    ap.add_argument("--only", choices=("mesh-devices",),
+    ap.add_argument("--only", choices=("mesh-devices", "xla"),
                     help="run the probe, the build and this phase alone")
     args = ap.parse_args()
 
@@ -1877,6 +2054,9 @@ def main() -> int:
     phase_build()
     if args.only == "mesh-devices":
         phase_mesh_devices()
+        return 0
+    if args.only == "xla":
+        phase_xla(args.seed)
         return 0
     k1_rows = phase_kernels(args.seed)
     k2_rows = phase_revised(args.seed)
@@ -1904,6 +2084,7 @@ def main() -> int:
     phase_lex()
     phase_mesh()
     phase_mesh_devices()
+    phase_xla(args.seed, k1_rows, k2_rows, {"cli": cli, "real": [real]})
     if "jax" in sys.modules or "moip_aira_tpu" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")
 

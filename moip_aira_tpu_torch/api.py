@@ -48,7 +48,9 @@ class FrontResult:
     #: adds its launches by plan shape, ``plan_shapes``, and as [shape, C,
     #: lanes, launches] rows, ``launch_lanes``), summed over the devices of
     #: its mesh, and per device (keyed ``str(device)``) the lanes,
-    #: ``device_lanes``, and kernel launches, ``device_launches``; for
+    #: ``device_lanes``, and kernel launches, ``device_launches`` (the
+    #: wave's XLA engine, kernel "xla", launches none and adds its solver's
+    #: ``lp_steps``, ``host_syncs`` and CUDA ``graphs``); for
     #: the knapsack front DP, backend "kp_front", kernel "kp_dp" (K4) with
     #: its launches, the expanded items, the table cells and the engine;
     #: for the lex backend ("jax"), its batches, lanes, fallbacks and the
@@ -102,6 +104,10 @@ def backend_stats(be) -> dict:
             stats["launch_lanes"] = sorted(
                 [shape, C, lanes, k] for (shape, C, lanes), k in by_lanes.items()
             )
+        if hasattr(first, "steps"):  # the XLA engine: its loop, no kernel
+            stats["lp_steps"] = sum(int(k.steps) for k in kernels.values())
+            stats["host_syncs"] = sum(int(k.syncs) for k in kernels.values())
+            stats["graphs"] = sum(int(k.graphs) for k in kernels.values())
         if hasattr(be, "device_lanes"):
             # lanes and launches per device, keyed str(device)
             stats["device_lanes"] = dict(be.device_lanes)

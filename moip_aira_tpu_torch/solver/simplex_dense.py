@@ -21,6 +21,18 @@ then follow the reference's bit for bit.  This is not K1's plain version
 (``simplex_torch.dense_lp_batch_ref``), which sums term by term to match
 its CUDA kernel and has its own pivot floor and warm start.
 
+In float32 (the wave's XLA engine, solver/xla_lp.py) that is not enough:
+there the order of a sum decides pivots.  So every float32 sum follows
+XLA's CPU code for the reference (``xla_sum``, ``xla_dot``): term by term
+up to 32 terms, longer axes in windows of 32 zero-padded at both ends; a
+short sum of products is a chain of fused multiply-adds; and the basic
+values' step rounds row 0's product apart, as XLA's unrolled loop does.
+On the CPU the float32 pivots then equal the reference's bit for bit
+(tests/test_torch_wave_xla.py).  On a CUDA device the order is the same,
+but PyTorch's CUDA ``addcmul`` rounds the product before it adds, so a
+fused multiply-add there is two roundings: where a product is inexact the
+card's pivots may leave the CPU's (PERF.md).  The float64 path is as above.
+
 On a CUDA device the start and each step of the loop are CUDA graphs,
 captured once per batch size: a step is about 140 small kernels, which the
 host would otherwise launch one at a time.
@@ -77,6 +89,10 @@ class DenseLPSolver:
         self.pivot_tol = pivot_tol
         self.progress_tol = progress_tol
         self.stall_limit = stall_limit
+        #: in float32, every sum is the one XLA's CPU backend computes for
+        #: the reference (``xla_sum``, ``xla_dot``): float32 rounding makes
+        #: the order of a sum decide pivots, float64 rarely does
+        self.xla_f32 = W.dtype == torch.float32
         self.T0 = -W  # the tableau of the logical basis B = -I
         self.neg_col = -torch.arange(self.nc, device=W.device, dtype=W.dtype)
         self.steps = 0
@@ -165,7 +181,10 @@ class DenseLPSolver:
         S.atu[:, :n] = ~fin_lo[:, :n] & fin_hi[:, :n]
         S.basis = (n + torch.arange(m, device=dev)).expand(B, m).clone()
         zv = torch.where(in_basis, 0.0, torch.where(S.atu, S.zup, S.zlo))
-        S.xB = -(self.T0[None] * zv[:, None, :]).sum(2)
+        if self.xla_f32:
+            S.xB = -xla_dot(self.T0[None], zv[:, None, :], 2)
+        else:
+            S.xB = -(self.T0[None] * zv[:, None, :]).sum(2)
         S.T = self.T0.expand(B, m, nc).clone()
 
         skip = (lo > hi + self.feas_tol).any(1)  # an empty box is INFEASIBLE
@@ -195,7 +214,12 @@ class DenseLPSolver:
         xB = S.xB
         below = xB < bl - ft
         above = xB > bh + ft
-        infeas = torch.where(below, bl - xB, torch.where(above, xB - bh, 0.0)).sum(1)
+        if self.xla_f32:
+            infeas = xla_sum(torch.where(below, bl - xB, 0.0), 1) + xla_sum(
+                torch.where(above, xB - bh, 0.0), 1
+            )
+        else:
+            infeas = torch.where(below, bl - xB, torch.where(above, xB - bh, 0.0)).sum(1)
         p1 = S.p1 & (infeas > ft)  # phase 1 ends once the basis is feasible
         entered = S.p1 & ~p1
         stall = torch.where(entered, 0, S.stall)
@@ -205,8 +229,12 @@ class DenseLPSolver:
         cB = torch.where(p1[:, None], above.to(dt) - below.to(dt), cBb)
         in_basis = torch.zeros_like(S.atu).scatter_(1, basis, True)
         zv = torch.where(in_basis, 0.0, torch.where(S.atu, S.zup, S.zlo))
-        d = torch.where(p1[:, None], 0.0, S.c) - (cB[:, None, :] @ S.T).squeeze(1)
-        cur = torch.where(p1, infeas, (cBb * xB).sum(1) + (S.c * zv).sum(1))
+        if self.xla_f32:
+            d = torch.where(p1[:, None], 0.0, S.c) - xla_dot(cB[:, :, None], S.T, 1)
+            cur = torch.where(p1, infeas, xla_dot(cBb, xB, 1) + xla_sum(S.c * zv, 1))
+        else:
+            d = torch.where(p1[:, None], 0.0, S.c) - (cB[:, None, :] @ S.T).squeeze(1)
+            cur = torch.where(p1, infeas, (cBb * xB).sum(1) + (S.c * zv).sum(1))
 
         # the entering column: the largest |d| among the columns that can
         # move (up from a lower bound on d < 0, down from an upper one on
@@ -273,6 +301,10 @@ class DenseLPSolver:
         # row r and swaps q into row r of the tableau
         newval = zv.gather(1, q) + sigma * theta
         xB_new = torch.addcmul(xB, eta, theta)
+        if self.xla_f32 and m <= XLA_WINDOW:
+            # XLA unrolls this loop over at most XLA_WINDOW rows and keeps
+            # row 0's product apart from its sum: one rounding more there
+            xB_new[:, 0] = xB[:, 0] + eta[:, 0] * theta[:, 0]
         xB_new.scatter_(1, r, torch.where(do_pivot, newval, xB_new.gather(1, r)))
         S.xB.copy_(torch.where(moves[:, None], xB_new, xB))
         piv = alpha.gather(1, r)
@@ -304,12 +336,54 @@ class DenseLPSolver:
         z = z.scatter(1, S.basis, S.xB)
         return LPOutcome(
             status=status,
-            obj=(S.c * z).sum(1),
+            obj=xla_dot(S.c, z, 1) if self.xla_f32 else (S.c * z).sum(1),
             x=z[:, : self.n],
             basis=S.basis.clone(),
             at_upper=S.atu.clone(),
             iters=S.it.clone(),
         )
+
+
+#: XLA's CPU backend sums at most this many terms in one pass; a longer
+#: axis is cut into windows of this many terms, zero-padded at both ends
+XLA_WINDOW = 32
+
+
+def xla_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over ``dim`` in the order XLA's CPU backend adds a
+    float32 reduction: term by term from the first while the axis has at
+    most ``XLA_WINDOW`` terms, else each window of ``XLA_WINDOW`` terms so
+    (the padding split low = pad // 2, high = the rest), then the windows'
+    sums the same way."""
+    x = x.movedim(dim, -1)
+    L = x.shape[-1]
+    if L > XLA_WINDOW:
+        nw = -(-L // XLA_WINDOW)
+        pad = nw * XLA_WINDOW - L
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.unflatten(-1, (nw, XLA_WINDOW))
+        return xla_sum(xla_sum(x, -1), -1)
+    acc = x[..., 0]
+    for i in range(1, L):
+        acc = acc + x[..., i]
+    return acc
+
+
+def xla_dot(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over ``dim`` of the products ``a * b`` (broadcast) as XLA's
+    CPU backend computes it in float32: a chain of fused multiply-adds,
+    term by term, while the axis has at most ``XLA_WINDOW`` terms, else the
+    rounded products summed by ``xla_sum``."""
+    a, b = torch.broadcast_tensors(a, b)
+    a = a.movedim(dim, -1)
+    b = b.movedim(dim, -1)
+    L = a.shape[-1]
+    if L > XLA_WINDOW:
+        return xla_sum(a * b, -1)
+    acc = a[..., 0] * b[..., 0]
+    for i in range(1, L):
+        acc = torch.addcmul(acc, a[..., i], b[..., i])
+    return acc
 
 
 class _Lanes:

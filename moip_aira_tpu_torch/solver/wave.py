@@ -3,8 +3,9 @@
 The port of ``moip_aira_tpu/solver/wave.py``.  The LP relaxations run on the
 device — K1, the CUDA dense-tableau kernel, or K2, the CUDA revised-simplex
 kernel, chosen by the LP's shape (solver/cuda_lp.py) on a GPU; their plain
-PyTorch versions (solver/simplex_torch.py) on the CPU — and the
-branch-and-bound tree search runs on the host:
+PyTorch versions (solver/simplex_torch.py) on the CPU; or, asked for, the
+reference's XLA engine (solver/xla_lp.py), plain PyTorch on either — and
+the branch-and-bound tree search runs on the host:
 
   wave loop:  gather up to ``batch_width`` open nodes across every active
               (worker, lex-stage) task  →  one asynchronous device call
@@ -31,6 +32,9 @@ what it could not prove for batched exact host LPs.
 from __future__ import annotations
 
 import os
+import pickle
+import sys
+import time
 import warnings
 from collections import Counter
 from typing import Dict, List, Optional
@@ -48,6 +52,7 @@ from moip_aira_tpu_torch.parallel.mesh import by_device, lane_chunks
 from moip_aira_tpu_torch.solver import simplex_torch as sx
 from moip_aira_tpu_torch.solver.cuda_lp import make_cuda_lp_batch, make_cuda_rev_batch
 from moip_aira_tpu_torch.solver.verify import LPVerifier
+from moip_aira_tpu_torch.solver.xla_lp import DTYPES, XlaLPBatch
 from moip_aira_tpu_torch.utils import knobs
 
 INT_TOL = 1e-6
@@ -60,9 +65,9 @@ REVISED_MIN_COLUMNS = 512
 #: stops on its own, so a higher cap costs only the lanes that need it.
 #: K2's f32 pivots on 2AP40's degenerate assignment LPs pass 2000 often:
 #: at 2000 the front re-solved 333 of its 2,598 LPs on the host, at 6000
-#: 43 of 2,596 (PERF.md)
-MAX_ITERS = {"dense": 2000, "revised": 6000}
-ENGINES = ("auto", "dense", "revised")
+#: 43 of 2,596 (PERF.md).  The XLA engine keeps the reference's 2000.
+MAX_ITERS = {"dense": 2000, "revised": 6000, "xla": 2000}
+ENGINES = ("auto", "dense", "revised", "xla")
 
 def fragments_auto() -> bool:
     """The fragments='auto' decision: MOIP_FRAGMENTS=0/1 when it is set,
@@ -136,9 +141,21 @@ class WaveLexBackend:
     ``engine`` picks the LP kernel as the reference picks its Pallas
     kernels: ``"dense"`` is K1 (the reference's ``"pallas"``),
     ``"revised"`` is K2 (``"pallas_rev"``), and ``"auto"`` takes
-    ``"revised"`` when the LP has n + m >= REVISED_MIN_COLUMNS columns.
-    ``lp_max_iters`` caps the pivots of one LP (default: the engine's
-    MAX_ITERS).
+    ``"revised"`` when the LP has n + m >= REVISED_MIN_COLUMNS columns, on
+    the card and on the CPU alike.  The reference's ``"auto"`` takes its XLA
+    engine everywhere off the TPU, because its Mosaic kernels run nowhere
+    else; the port's kernels are hand-written for the card, and on the CPU
+    their plain versions keep the kernels' arithmetic covered, so ``"auto"``
+    stays with them.  ``"xla"`` is the reference's XLA engine
+    (solver/xla_lp.py: the dense simplex of solver/simplex_dense.py over the
+    unscaled system, no hand-written kernel, CUDA graphs on a card), in
+    ``dtype`` ``"float32"`` (loose tolerances, XLA's order of sums) or
+    ``"float64"``; the kernels always run float32, as the reference's Pallas
+    engines do, whatever ``dtype`` says.  Unlike the reference, whose
+    float64 mode prunes on the device's own LP values, every engine and
+    dtype here certifies each lane in float64 (solver/verify.py) before a
+    bound or a point is used.  ``lp_max_iters`` caps the pivots of one LP
+    (default: the engine's MAX_ITERS).
     ``device`` is where the LP relaxations run: the kernel's wrapper
     (solver/cuda_lp.py) launches it on a CUDA device and runs its plain
     version on the CPU.  ``fragments`` (True, False or "auto", see
@@ -174,6 +191,7 @@ class WaveLexBackend:
         frag_nodes: int = 32,
         frag_depth: int = 128,
         mesh=None,
+        dtype: str = "float32",
     ):
         self.problem = problem
         self.mesh = mesh
@@ -203,6 +221,8 @@ class WaveLexBackend:
         self.max_nodes = max_nodes
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {tuple(DTYPES)}, got {dtype!r}")
         p = problem
         self.k = p.objcnt
         self.n = p.n
@@ -211,12 +231,16 @@ class WaveLexBackend:
             wide = self.n + self.m >= REVISED_MIN_COLUMNS
             engine = "revised" if wide else "dense"
         self.engine = engine
+        #: the LP engine's arithmetic: float64 only on the XLA engine
+        self.dtype = dtype if engine == "xla" else "float32"
         # Warm-starting children from parent bases (the kernels' Gauss-Jordan
         # rebuild) pays on the revised simplex, whose rebuild works on the
         # (m, m) basis block, and not on the dense tableau, where each
         # rebuild step costs about two pivots over the whole tableau and m
         # of them exceed a cold solve's ~2-4m pivots.  'auto' turns it on
-        # for the revised engine only, as the reference does.
+        # for the revised engine only, as the reference does (the XLA engine
+        # ignores warm bases; warm_start=True still gathers its waves
+        # homogeneously, as the reference's does).
         if warm_start == "auto":
             self.warm_start = engine == "revised"
         else:
@@ -232,14 +256,24 @@ class WaveLexBackend:
         lpt = lp_tensors(p, self.device)
         self._A_full = lpt.A_full
         self._row_scale = lpt.row_scale
-        make_kernel = make_cuda_rev_batch if engine == "revised" else make_cuda_lp_batch
         if lp_max_iters is None:
             lp_max_iters = MAX_ITERS[engine]
+        if engine == "xla":
+            # the unscaled [A | -I], as the reference's XLA engine solves it
+
+            def make_kernel(dev):
+                return XlaLPBatch(
+                    lpt.W_np, dev, max_iters=lp_max_iters, dtype=self.dtype,
+                    max_lanes=batch_width,
+                )
+        else:
+            make = make_cuda_rev_batch if engine == "revised" else make_cuda_lp_batch
+
+            def make_kernel(dev):
+                return make(lpt.W_dev, dev, max_iters=lp_max_iters)
+
         #: the LP kernel's wrapper on each device of the waves, W on each
-        self.lp_kernels = {
-            dev: make_kernel(lpt.W_dev, dev, max_iters=lp_max_iters)
-            for dev, _ in self._groups
-        }
+        self.lp_kernels = {dev: make_kernel(dev) for dev, _ in self._groups}
         self.lp_kernel = self.lp_kernels[self.device]
         self._verifier = LPVerifier(lpt.W_np)
         self._ws = None  # lazy SimplexWorkspace for the exact host LPs
@@ -267,7 +301,7 @@ class WaveLexBackend:
             fragments = fragments_auto()
         self.fragments = bool(fragments)
         self.frag_stats = {
-            "records": 0, "host_recs": 0, "reopened": 0,
+            "records": 0, "host_recs": 0, "reopened": 0, "resumed": 0,
             "lanes": 0, "waves": 0, "warm": 0, "ticks": 0,
             "dev_iters": 0, "max_iters": 0, "ticked_out": 0,
             # iterlim_p1 = iteration-limited records still primal-infeasible
@@ -275,6 +309,9 @@ class WaveLexBackend:
             "why": {"iterlim": 0, "infeas": 0, "prune": 0, "leaf": 0,
                     "iterlim_p1": 0},
         }
+        #: MOIP_WAVE_PROGRESS=N -> one stderr line every N fragment waves
+        self._progress_every = int(os.environ.get("MOIP_WAVE_PROGRESS", "0"))
+        self._t_start = None
         #: deferred host-LP queue: (task, lo, hi, wb, wa, pb).  Audit
         #: failures accumulate here across waves and flush in ONE lockstep
         #: batch — solve_lp_batch's per-pivot numpy overhead amortises with
@@ -290,6 +327,12 @@ class WaveLexBackend:
         from moip_aira_tpu_torch.solver.cuda_bb import make_cuda_bb_batch
 
         self._frag_F = frag_nodes
+        #: device visits a node may take (each warm from where the last
+        #: stopped) before it goes to the exact host LP.  Default 0, the
+        #: reference's: its 2AP20 iteration-limited records had burned their
+        #: whole node budget in f32 degenerate stalls that further visits do
+        #: not end, while the exact host LP from the stopped basis does
+        self._retry_max = int(os.environ.get("MOIP_FRAG_RETRIES", "0"))
         # tick budget: a cold LP needs ~2-4m pivots, so give each of the F
         # nodes ~6m ticks (plus an 8192 floor); lanes that still run out are
         # re-opened by the audit — ticks only bound one launch's duration
@@ -478,9 +521,11 @@ class WaveLexBackend:
 
         Built once per backend when the problem's equality rows form a
         square assignment structure; queued audit failures close via exact
-        Hungarian bounds instead of exact LPs."""
+        Hungarian bounds instead of exact LPs (MOIP_COURT=0 disables)."""
         if not hasattr(self, "_match_court_cache"):
             self._match_court_cache = None
+            if os.environ.get("MOIP_COURT", "1") == "0":
+                return None
             llo, lhi = self._logical_bounds(
                 np.asarray(self.problem.initial_rhs(), dtype=np.float64)
             )
@@ -578,12 +623,16 @@ class WaveLexBackend:
         up, its kernel is queued and the three outputs the host reads come
         back by asynchronous copies into its rows of pinned buffers, so a
         second wave can be queued behind this one while the host works on
-        an earlier one.  The logical bounds are row-scaled here, as the
-        device system is."""
-        lo = lo.copy()
-        hi = hi.copy()
-        lo[:, self.n :] *= self._row_scale
-        hi[:, self.n :] *= self._row_scale
+        an earlier one (the XLA engine waits for its lanes: its host reads
+        the loop condition after every step).  The logical bounds are
+        row-scaled here for the kernels, whose system is; the XLA engine
+        solves the unscaled one."""
+        if self.engine != "xla":
+            lo = lo.copy()
+            hi = hi.copy()
+            lo[:, self.n :] *= self._row_scale
+            hi[:, self.n :] *= self._row_scale
+        fdt = np.float64 if self.dtype == "float64" else np.float32
         nb, nc = c.shape
         parts = self._wave_parts(nb)
         pin = any(dev.type == "cuda" for dev, _, _ in parts)
@@ -595,8 +644,8 @@ class WaveLexBackend:
         up = self._upload
         for dev, a, b in parts:
             out = self.lp_kernels[dev](
-                up(c[a:b], np.float32, dev), up(lo[a:b], np.float32, dev),
-                up(hi[a:b], np.float32, dev), up(wb[a:b], np.int32, dev),
+                up(c[a:b], fdt, dev), up(lo[a:b], fdt, dev),
+                up(hi[a:b], fdt, dev), up(wb[a:b], np.int32, dev),
                 up(wa[a:b], np.int32, dev),
             )
             done += self._fetch(
@@ -994,7 +1043,7 @@ class WaveLexBackend:
         asynchronous device call.  Only the gathered lanes are launched."""
         B = self.batch_width
         nc = self.n + self.m
-        # wave entry: (task, root_lo, root_hi, parent_bound, wb, wa)
+        # wave entry: (task, root_lo, root_hi, parent_bound, wb, wa, retry)
         wave: List = []
         n_active = sum(1 for t_ in active if t_.nodes)
         quota = max(self.nodes_per_task, B // max(1, n_active))
@@ -1005,7 +1054,7 @@ class WaveLexBackend:
                 node = task.nodes.pop()
                 if node[4] >= task.best - eps_t:
                     continue  # incumbent improved since this node was made
-                wave.append((task, node[0], node[1], node[4], node[2], node[3]))
+                wave.append((task, node[0], node[1], node[4], node[2], node[3], node[5]))
                 take += 1
             task.inflight += take
             if len(wave) >= B:
@@ -1019,7 +1068,7 @@ class WaveLexBackend:
         par = np.zeros((nb, 4), dtype=np.float32)
         wb_buf = np.full((nb, self.m), -1, dtype=np.int32)
         wa_buf = np.zeros((nb, nc), dtype=np.int32)
-        for i, (task, nlo, nhi, _pb, wb, wa) in enumerate(wave):
+        for i, (task, nlo, nhi, _pb, wb, wa, _rt) in enumerate(wave):
             c_buf[i] = task.cvec
             lo_buf[i, : self.n] = nlo
             # logical bounds ride the row equilibration (convert.py)
@@ -1036,11 +1085,27 @@ class WaveLexBackend:
         self.frag_stats["lanes"] += nb
         self.frag_stats["warm"] += int((wb_buf[:, 0] >= 0).sum())
         self.frag_stats["waves"] += 1
+        if self._progress_every and self.frag_stats["waves"] % self._progress_every == 0:
+            self._progress_line()
         from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
 
         with GLOBAL_TIMINGS.span("frag.submit_dispatch"):
             out = self._device_frag(c_buf, lo_buf, hi_buf, par, wb_buf, wa_buf)
         return wave, nb, out
+
+    def _progress_line(self) -> None:
+        """MOIP_WAVE_PROGRESS's line: the fragment counters so far."""
+        if self._t_start is None:
+            self._t_start = time.monotonic()
+        fs = self.frag_stats
+        sys.stderr.write(
+            f"[wave] {time.monotonic() - self._t_start:8.1f}s "
+            f"waves={fs['waves']} lanes={fs['lanes']} recs={fs['records']} "
+            f"host={fs['host_recs']} reopen={fs['reopened']} "
+            f"resume={fs['resumed']} warm={fs['warm']} ticks={fs['ticks']} "
+            f"iters={fs['dev_iters']} maxit={fs['max_iters']} "
+            f"tickout={fs['ticked_out']} why={fs['why']}\n"
+        )
 
     def _complete_frag_wave(self, submitted) -> None:
         """Fetch one fragment wave and restore exactness (bb_audit):
@@ -1060,7 +1125,7 @@ class WaveLexBackend:
         from moip_aira_tpu_torch.solver import bb_audit
         from moip_aira_tpu_torch.solver.bb_torch import (
             ACT_BRANCH, ACT_INFEAS, ACT_ITERLIM, ACT_LEAF, ACT_PRUNE,
-            F_ACTION, F_FL, F_J, F_PHASE1, F_STATUS, LS_TICKS,
+            F_ACTION, F_FL, F_ITERS, F_J, F_PHASE1, F_STATUS, LS_TICKS,
         )
         from moip_aira_tpu_torch.solver.heuristics import candidate_value
         from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
@@ -1248,8 +1313,9 @@ class WaveLexBackend:
         # and the B&B decision (_apply_host_lp) runs against the freshest
         # incumbent at apply time — later prunes only get easier.
         _t_aud = _time.perf_counter()
+        dump = os.environ.get("MOIP_DUMP_ITERLIM")
         for i in range(nb):
-            task, _root_lo, _root_hi, pb0, root_wb, root_wa = wave[i]
+            task, _root_lo, _root_hi, pb0, root_wb, root_wa, root_rt = wave[i]
             task.inflight -= 1
             rep = replays[i]
             if task.failed or rep is None:
@@ -1264,10 +1330,18 @@ class WaveLexBackend:
             fb_i = np.clip(fb_d[i, :m], 0, nc - 1).astype(np.int32)
             fa_i = fa_all[i].astype(np.int32)
             if nlog == 0:
-                # tick limit mid-first-LP: the root goes to the exact host
-                # step, warm from the lane's stopped basis (the batched exact
-                # LP starts cold from a garbage one)
+                # tick limit mid-first-LP: resume the root on the device from
+                # the lane's stopped basis while it has retries left (see
+                # _retry_max), else it goes to the exact host step, warm from
+                # that basis (the batched exact LP starts cold from a garbage
+                # one)
                 for olo, ohi, _prec in rep.open_nodes:
+                    if root_rt < self._retry_max:
+                        task.nodes.append(
+                            (olo, ohi, fb_i, fa_i, float(pb0), root_rt + 1)
+                        )
+                        self.frag_stats["resumed"] += 1
+                        continue
                     task.pending_host += 1
                     self._host_queue.append(
                         (task, olo, ohi, fb_i, fa_i > 0, float(pb0))
@@ -1288,6 +1362,19 @@ class WaveLexBackend:
                 act_t = int(lgs_d[i, t, F_ACTION])
                 if act_t == ACT_ITERLIM and lgs_d[i, t, F_PHASE1] > 0.5:
                     self.frag_stats["why"]["iterlim_p1"] += 1
+                if dump and act_t == ACT_ITERLIM:
+                    # MOIP_DUMP_ITERLIM=path appends each iteration-limited
+                    # record, pickled, for offline study of the f32 stalls
+                    with open(dump, "ab") as fh:
+                        pickle.dump(
+                            dict(
+                                node_lo=rep.node_lo[t], node_hi=rep.node_hi[t],
+                                llo=task.llo, lhi=task.lhi, cvec=task.cvec,
+                                basis=lgb_d[i, t, :m], atup=_au(i, t),
+                                iters=float(lgs_d[i, t, F_ITERS]),
+                            ),
+                            fh,
+                        )
                 # ITERLIM records carry a mid-solve basis that warm-starts
                 # the exact host LP badly; their PARENT branch record's basis
                 # is the parent node's claimed-optimal one, a single bound
@@ -1313,6 +1400,22 @@ class WaveLexBackend:
                         continue
                 wb_t = np.clip(lgb_d[i, src_t, :m], 0, nc - 1).astype(np.int32)
                 wa_t = _au(i, src_t) > 0
+                if act_t == ACT_ITERLIM and root_rt < self._retry_max:
+                    # MOIP_FRAG_RETRIES > 0 only: back to the device, where
+                    # the record's own stopped basis continues the solve
+                    pb_t = float(audit.rec_pb[t])
+                    if not np.isfinite(pb_t):
+                        pb_t = float(pb0)
+                    if pb_t < task.best - eps_t:
+                        task.nodes.append(
+                            (
+                                rep.node_lo[t].copy(), rep.node_hi[t].copy(),
+                                np.clip(lgb_d[i, t, :m], 0, nc - 1).astype(np.int32),
+                                (_au(i, t) > 0).astype(np.int32), pb_t, root_rt + 1,
+                            )
+                        )
+                        self.frag_stats["resumed"] += 1
+                    continue
                 task.pending_host += 1
                 self._host_queue.append(
                     (

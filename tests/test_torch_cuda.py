@@ -32,10 +32,11 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def lanes(name, dev, seed, count=B):
+def lanes(name, dev, seed, count=B, scaled=True):
     """``count`` lanes of ``name`` on ``dev``: one stage objective per lane,
     free objective rows, a few integer fixes on the lanes after the first,
-    and logical bounds row-scaled as the wave scales them."""
+    and logical bounds row-scaled as the wave scales them for the kernels
+    (``scaled``; the XLA engine solves the unscaled system)."""
     rng = np.random.default_rng(seed)
     p = read_problem(os.path.join(EX, name))
     t = lp_tensors(p, dev)
@@ -52,8 +53,9 @@ def lanes(name, dev, seed, count=B):
                 hi[b, v] = lo[b, v]
             else:
                 lo[b, v] = hi[b, v]
-    lo[:, n:] *= t.row_scale
-    hi[:, n:] *= t.row_scale
+    if scaled:
+        lo[:, n:] *= t.row_scale
+        hi[:, n:] *= t.row_scale
     args = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (c, lo, hi)]
     return t, args
 
@@ -743,3 +745,60 @@ def test_distributed_round_over_two_cards_equals_one_card(two_cards):
     for a, b in zip(*outs):
         assert np.array_equal(a, b)
     assert (outs[1][0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,count", [("G2AP05.lp", 21), ("2AP20.lp", 37)])
+def test_xla_engine_bucketed_lanes_equal_the_unbucketed(cuda_device, name, count):
+    """The wave's XLA engine (plain PyTorch, CUDA graphs a batch size) pads a
+    call to its bucket of lanes with the trivial LP: on the card the padded
+    call gives the unpadded call's outputs bit for bit, twice in a row (the
+    second replays the graphs)."""
+    from moip_aira_tpu_torch.solver.xla_lp import XlaLPBatch, bucket
+
+    t, args = lanes(name, cuda_device, seed=7, count=count, scaled=False)
+    padded = XlaLPBatch(t.W_np, cuda_device, max_lanes=64)
+    plain = XlaLPBatch(t.W_np, cuda_device, max_lanes=64)
+    plain.bucketed = False
+    assert padded.bucketed and bucket(count, 64) > count
+    for _ in range(2):
+        a, b = padded(*args), plain(*args)
+        for f in a._fields:
+            assert getattr(a, f).is_cuda
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert padded.graphs == plain.graphs == 2 and padded.launches == 0
+    assert set(padded.solver._graphs) == {bucket(count, 64)}
+
+
+def golden_points(name):
+    with open(os.path.join(EX, f"{name}.out")) as fh:
+        return [
+            [int(t) for t in line.split()] for line in fh
+            if line.split() and all(t.lstrip("-").isdigit() for t in line.split())
+        ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_xla_engine_front_on_the_card(cuda_device, dtype):
+    """G3AP05 through the scheduler on the XLA engine: the golden front on
+    the card with no kernel launched and graphs captured, and the CPU's
+    IPs (the pivots may differ: the card's addcmul rounds its product, and
+    its float64 sums take another order)."""
+    from moip_aira_tpu_torch.api import solve_front
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
+    from moip_aira_tpu_torch.solver.wave import WaveLexBackend
+
+    p = read_problem(os.path.join(EX, "G3AP05.lp"))
+    counts = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        be = WaveLexBackend(p, device=dev, engine="xla", dtype=dtype)
+        reset_launches()
+        front = solve_front(p, n_workers=2, backend=be, device=dev, dp="off")
+        assert not any(LAUNCHES.values())
+        assert front.points.tolist() == golden_points("G3AP05")
+        assert front.backend_stats["graphs"] == be.lp_kernel.graphs
+        assert be.lp_kernel.W.device.type == dev.type
+        assert (be.lp_kernel.graphs > 0) == (dev.type == "cuda")
+        counts[dev.type] = front.ip_count
+    assert counts["cuda"] == counts["cpu"]

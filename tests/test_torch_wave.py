@@ -56,18 +56,20 @@ def outcomes(be, reqs):
 
 #: the port's engine held against each reference engine: its shape choice
 #: ("auto", which is K1 at these widths) against the dense Pallas kernel and
-#: the XLA twin, and K2 against the revised Pallas kernel, both warm
-PORT_ENGINE = {"pallas": "auto", "xla": "auto", "pallas_rev": "revised"}
+#: the XLA twin, the port's XLA engine against the XLA twin, and K2 against
+#: the revised Pallas kernel, both warm
+ENGINE_PAIRS = [("pallas", "auto"), ("xla", "auto"), ("xla", "xla"), ("pallas_rev", "revised")]
 
 
 @pytest.mark.parametrize("name", ["G2AP05", "G3KP10"])
-@pytest.mark.parametrize("ref_engine", ["pallas", "xla", "pallas_rev"])
-def test_lex_outcomes_match_reference(name, ref_engine):
+@pytest.mark.parametrize(
+    "ref_engine,port_engine", ENGINE_PAIRS, ids=["pallas", "xla", "xla-xla", "pallas_rev"]
+)
+def test_lex_outcomes_match_reference(name, ref_engine, port_engine):
     path = os.path.join(EX, f"{name}.lp")
     reqs = GRIDS[name]()
     port = WaveLexBackend(
-        read_problem(path), device="cpu", batch_width=64,
-        engine=PORT_ENGINE[ref_engine],
+        read_problem(path), device="cpu", batch_width=64, engine=port_engine,
     )
     ref = RefWave(
         ref_read_problem(path), engine=ref_engine, fragments=False, batch_width=64
