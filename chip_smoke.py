@@ -6,14 +6,16 @@ bound sweep (k=2) or AIRA scheduler (k>=3) -> WaveLexBackend -> the
 hand-written CUDA kernels, K1 (dense tableau, LPs of n + m < 512 columns)
 and K2 (revised simplex, wider LPs) on the per-LP path, K3 (B&B fragments,
 a subtree per lane) on the fragment path -> f64 certification and audit ->
-host branch and bound; and read_problem -> solve_front -> the knapsack
-front DP, K4 (one launch per item) for single-capacity bi-objective
-knapsacks — and fails unless every phase passes:
+host branch and bound; read_problem -> solve_front -> the knapsack front
+DP, K4 (one launch per item) for single-capacity bi-objective knapsacks;
+and K5 (the dense simplex loop of solver/simplex_dense.py) under the lex
+backend and the wave's XLA engine — and fails unless every phase passes:
 
 1. probe:     the card (nvidia-smi), torch, CUDA and nvcc versions;
 2. build:     K1 (csrc/dense_simplex.cu), K2 (csrc/revised_simplex.cu),
-              K3 (csrc/bb_fragment.cu) and K4 (csrc/kp_dp.cu), one nvcc
-              each, started together, each timed;
+              K3 (csrc/bb_fragment.cu), K4 (csrc/kp_dp.cu) and K5
+              (csrc/simplex_dense.cu), one nvcc each, started together,
+              each timed;
 3. kernels:   K1 against its plain PyTorch version on the card, at 2AP20's
               and G2AP05's LP shapes with 256 lanes (cold and half-warm):
               raw outputs equal bit for bit on every lane, then certified
@@ -90,24 +92,37 @@ knapsacks — and fails unless every phase passes:
               never.  Then G2KP50 and 2KP100 timed on the DP (dp="on")
               and on the AIRA engine (dp="off", kp_bb on the host), the
               measurement behind the n >= 80 rule of dp="auto";
-15. lex:      the lex backend (backend="jax", solver/lex_torch.py: plain
-              PyTorch in f64, none of K1-K4) on the card: G2AP05 (the
-              sweep), G3AP05 and G3KP10 with n_workers=2 against their
-              goldens and IPs (24 / 57 / 109), then one call of the lex
-              kernel on 2AP20's 32 lanes (the initial rhs and golden points
-              under both orderings) whose statuses, results and IPs must
-              equal the same call's on the CPU; each row with seconds,
-              batches, lanes, fallbacks, B&B and LP steps, host syncs and
-              us an LP step; at most MAX_FALLBACK_SHARE of lanes may fall
-              back;
-16. mesh:     the twin of __graft_entry__.dryrun_multichip: G3AP05, 6
+15. dense-loop: K5 against its plain version, DenseLPSolver on the CPU:
+              first that the CPU's addcmul (the plain version's fused
+              multiply-add) rounds once, else the phase fails; then the
+              same numpy-made lanes on both, float32 (the XLA engine's
+              tolerances) and float64, at G3KP10, KP2D50 and G2AP05 (64
+              lanes), 2AP20 (32) and 2AP40 (256, the tableau in global
+              memory), and float64 at the lex backend's 2AP20 batch (its
+              root LPs): status, objective, x, basis, at-upper flags and
+              iterations equal bit for bit on every lane; K5's plan, ms
+              (CUDA events, median of 5), the plain version's ms (one run),
+              the bound (from the plain run's steps and pivots) and us a
+              step;
+16. lex:      the lex backend (backend="jax", solver/lex_torch.py: its B&B
+              loop plain PyTorch in f64, its LPs K5, one launch a B&B step)
+              on the card: G2AP05 (the sweep), G3AP05 and G3KP10 with
+              n_workers=2 against their goldens and IPs (24 / 57 / 109) and
+              the CPU's B&B and LP steps (LEX_FRONTS), then one call of
+              the lex kernel on 2AP20's 32 lanes (the initial rhs and
+              golden points under both orderings) whose statuses, results,
+              IPs and steps must equal the same call's on the CPU; each row
+              with seconds, batches, lanes, fallbacks, B&B and LP steps,
+              host syncs, K5's launches and us an LP step; at most
+              MAX_FALLBACK_SHARE of lanes may fall back;
+17. mesh:     the twin of __graft_entry__.dryrun_multichip: G3AP05, 6
               workers, the wave backend with mesh_devices=8 on the card
               (one domain on a one-card machine), with K1 on every wave and
               the counts of the reference on one device (111 IPs, 8 rounds,
               domain_ips [68], pre_ips 43); then the distributed round of
               the lex kernel on G2AP05 (statuses 0, the front's two ends,
               their min and max);
-17. mesh-devices: the wave over a mesh of several devices (solve_front
+18. mesh-devices: the wave over a mesh of several devices (solve_front
               with mesh_devices through the mesh scheduler; one kernel
               wrapper per device, each wave's lanes split over the devices
               in proportion to their domains): G3AP05, 6 workers, 8 domains
@@ -125,33 +140,31 @@ knapsacks — and fails unless every phase passes:
               launches on every card and the host spans
               wave.device_lp / frag.device_exec of both; with one card, a
               line that says the cross-card fronts were not run;
-18. xla:      the wave's XLA engine (WaveLexBackend(engine="xla"):
-              solver/xla_lp.py, the reference's XLA engine in plain PyTorch,
-              none of K1-K4, CUDA graphs a bucket of lanes) on the card:
-              the G2AP05, G3KP10 and 2AP20 fronts in float32 and G3AP05 in
-              float64 at `real`'s widths, each against its golden, with no
-              kernel launched, graphs captured and at most
-              MAX_FALLBACK_SHARE of its LPs re-solved on the host (or twice
-              the share its CPU run had, XLA_FALLBACK_SHARE); waves, LPs,
-              re-solves, steps, host syncs, graphs and seconds beside K1's
-              for the same front from phases cli and real; then the 256
-              cold 2AP20 lanes of phase kernels and the 256 cold 2AP40 lanes
-              of phase revised through the engine, timed by CUDA events
-              (median of 5) beside K1's and K2's times on the same lanes,
-              and the first XLA_CPU_LANES 2AP20 lanes against the same call
-              on the CPU: equal certified statuses and optima, and how many
-              lanes equal bit for bit.
+19. xla:      the wave's XLA engine (WaveLexBackend(engine="xla"):
+              solver/xla_lp.py, the reference's XLA engine, K5 one launch a
+              wave) on the card: the G2AP05, G3KP10 and 2AP20 fronts in
+              float32 and G3AP05 in float64 at `real`'s widths, each
+              against its golden and the CPU's waves, LPs, re-solves and
+              LP steps (XLA_CPU_COUNTS), with K5 launched once a wave and
+              no other kernel; seconds, host syncs and us a step beside
+              K1's for the same front from phases cli and real; then the
+              256 cold 2AP20 lanes of phase kernels and the 256 cold 2AP40
+              lanes of phase revised through the engine, timed by CUDA
+              events (median of 5) beside K1's and K2's times on the same
+              lanes, and the first XLA_CPU_LANES 2AP20 lanes bit for bit
+              against the same call on the CPU.
 
-Each phase prints one JSON line (phases 15-18 with the card's name and
+Each phase prints one JSON line (phases 15-19 with the card's name and
 power limit).  The last two lines are the kernel table
 ({"kernels": [...]}) and {"ok": true, "device": {...}}.  Any failure raises
 and the exit code is not 0.  Run from the root of a checkout:
 
     python3 chip_smoke.py [--seed N]
 
-``--only mesh-devices`` runs phases 1, 2 and 17 alone (no kernel table),
+``--only mesh-devices`` runs phases 1, 2 and 18 alone (no kernel table),
 to try the multi-device wave on a machine with several cards; ``--only
-xla`` runs phases 1, 2 and 18 alone (without K1's and K2's figures).
+xla`` and ``--only dense-loop`` run phases 1, 2 and that phase alone (xla
+without K1's and K2's figures).
 """
 
 from __future__ import annotations
@@ -176,7 +189,7 @@ REVISED_SHAPES = (("2AP40", 256, ("cold", "warm")), ("2AP100", 64, ("cold",)))
 #: a few take clusters of several blocks, a full batch one block a lane
 REVISED_SUBSETS = (1, 8, 64)
 CROSSOVER_SHAPES = ("2AP20", "2AP40")
-KERNELS = ("dense_simplex", "revised_simplex", "bb_fragment", "kp_dp")
+KERNELS = ("dense_simplex", "revised_simplex", "bb_fragment", "kp_dp", "simplex_dense")
 #: K4's instances: bundled, or generated by utils/generate.kp_lp (seed 1)
 #: with this many items
 DP_INSTANCES = (("G2KP50", None), ("2KP100", None), ("2KP500", 500))
@@ -200,6 +213,9 @@ LANES = 256
 # over these
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# float64 operations per second outside the tensor cores (H100 SXM data
+# sheet: 34 TFLOP/s)
+PEAK_F64_PER_S = 34e12
 # int32 operations per second outside the tensor cores: 64 INT32 lanes an SM
 # against 128 FP32 lanes (Hopper white paper), so half the float32 lane rate,
 # 132 SMs x 64 x 1.98 GHz
@@ -209,10 +225,16 @@ CERT_RTOL = 1e-7  # certified f64 optima of the same LP from two bases
 # at most this share of a front's device LPs may fail f64 certification and
 # be re-solved on the host (the H100 runs re-solve 0-0.16%)
 MAX_FALLBACK_SHARE = 0.05
-#: the lex backend's fronts (backend="jax", n_workers=2) and their IPs; its
-#: fronts and the lex kernel's batch fail past MAX_FALLBACK_SHARE of their
-#: lanes re-solved on the host
-LEX_FRONTS = (("G2AP05", 24), ("G3AP05", 57), ("G3KP10", 109))
+#: the lex backend's fronts (backend="jax", n_workers=2): their IPs, and
+#: the B&B and LP steps of the same front on the CPU (`python3
+#: tools/lex_bench.py --cpu-fronts`, torch 2.13.0+cpu), which K5 must
+#: repeat; its fronts and the lex kernel's batch fail past
+#: MAX_FALLBACK_SHARE of their lanes re-solved on the host
+LEX_FRONTS = (
+    ("G2AP05", 24, 110, 2293),
+    ("G3AP05", 57, 338, 7161),
+    ("G3KP10", 109, 14688, 241954),
+)
 #: the lex kernel's batch at full width: 2AP20 (n = 400, m = 42, an f64
 #: tableau of 42 x 442 a lane), the reference backend's 32 lanes
 LEX_BATCH = ("2AP20", 32)
@@ -227,6 +249,22 @@ XLA_FRONTS = (
 #: a front whose CPU run already re-solves more than MAX_FALLBACK_SHARE of
 #: its LPs on the host is held to twice its CPU share (none so far)
 XLA_FALLBACK_SHARE: dict = {}
+#: the XLA engine's fronts on the CPU at the same widths (`python3
+#: tools/xla_parity.py --cpu-counts`, torch 2.13.0+cpu): device waves, LPs,
+#: re-solves and LP steps, which the card must repeat
+XLA_CPU_COUNTS = {
+    ("G2AP05", "float32"): (19, 98, 0, 592),
+    ("G3KP10", "float32"): (603, 16343, 33, 14309),
+    ("2AP20", "float32"): (33, 1192, 8, 43637),
+    ("G3AP05", "float64"): (81, 269, 0, 2440),
+}
+#: K5 in phase dense-loop: (instance, lanes) in float32 and float64, the
+#: XLA engine's shapes (2AP40's tableau in global memory), then the lex
+#: backend's 2AP20 batch (LEX_BATCH) in float64
+DENSE_LOOP_SHAPES = (("G3KP10", 64), ("KP2D50", 64), ("G2AP05", 64), ("2AP20", 32), ("2AP40", 256))
+#: the shapes and lengths of the CPU addcmul check (the plain version's
+#: fused multiply-adds)
+FMA_CHECK_LENGTHS = (14, 37, 442, 1682)
 #: the XLA engine's batches: (instance, the seed offset of the phase whose
 #: 256 cold lanes it takes: kernels 0, revised 1, and that phase's kernel)
 XLA_BATCHES = (("2AP20", 0, "dense_simplex"), ("2AP40", 1, "revised_simplex"))
@@ -1520,6 +1558,165 @@ def phase_dp(tmp, plain_fronts):
     return main
 
 
+def cpu_addcmul_fused():
+    """Whether PyTorch's CPU ``addcmul``, which the plain version of K5
+    uses for its fused multiply-adds, rounds once: on 64 x L random float32
+    triples it must equal the product and sum done in float64 and rounded
+    once on every element (the rounded product plus the sum does so on
+    about three quarters), and in float64, at value 1 and -1, the exact
+    c +- a b rounded once on a sample.  Returns the shares."""
+    from fractions import Fraction
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+    shares = {}
+    for L in FMA_CHECK_LENGTHS:
+        a, b, c = (torch.as_tensor(rng.standard_normal((64, L)), dtype=torch.float32)
+                   for _ in range(3))
+        got = torch.addcmul(c, a, b)
+        once = (c.double() + a.double() * b.double()).float()
+        shares[f"f32 L={L}"] = [float((got == once).float().mean()),
+                                float((got == c + a * b).float().mean())]
+        a, b, c = (torch.as_tensor(rng.standard_normal((4, L))) for _ in range(3))
+        for value in (1.0, -1.0):
+            got = torch.addcmul(c, a, b, value=value)
+            same = [
+                got[i, j].item() == float(
+                    Fraction(c[i, j].item()) + Fraction(value) * Fraction(a[i, j].item())
+                    * Fraction(b[i, j].item()))
+                for i in range(4) for j in range(0, L, max(1, L // 50))
+            ]
+            shares[f"f64 L={L} value={value:+.0f}"] = [sum(same) / len(same)]
+    fused = all(v[0] == 1.0 for v in shares.values())
+    return fused, shares
+
+
+def dense_bound(m, n, iters, pivots, dsize):
+    """The least time the card could take for one K5 launch on these
+    lanes, in ms, and what sets it.  Bytes: W and each lane's c, lo, hi
+    read once, its status, objective, x, basis (int64), at-upper bytes and
+    iterations written once.  Operations: 2 m (n + m) a step for pricing,
+    at each lane's own steps (``iters``), and 2 m (n + m) more a pivot for
+    the rank-1 update, at each lane's own pivots (a bound flip and the
+    last, pricing-only step update nothing), over the card's float32 or
+    float64 rate."""
+    import numpy as np
+
+    nc = n + m
+    B = len(iters)
+    nbytes = dsize * (m * nc + B * 3 * nc + B * (1 + n)) + B * (4 + 4 + 8 * m + nc)
+    ops = (float(np.sum(iters)) + float(np.sum(pivots))) * 2 * m * nc
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / (PEAK_F64_PER_S if dsize == 8 else PEAK_F32_PER_S)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lex_root_lanes(p, rhs, perm):
+    """The lex kernel's first LP call on the lanes (rhs, perm): the stage-0
+    objective of each lane over the root box, its objective rows bounded
+    by the rhs (solver/lex_torch.py ``_bnb``), as float64 arrays."""
+    import numpy as np
+
+    from moip_aira_tpu_torch import Sense
+
+    n, m = p.n, p.m_total
+    is_min = p.objsen is Sense.MIN
+    free = np.full(rhs.shape, np.inf)
+    olo, ohi = (-free, rhs) if is_min else (rhs, free)
+    B = rhs.shape[0]
+    c = np.zeros((B, n + m))
+    c[:, :n] = (1.0 if is_min else -1.0) * p.C[perm[:, 0]]
+    lo = np.hstack([np.tile(np.concatenate([p.lb, p.row_lb]), (B, 1)), olo])
+    hi = np.hstack([np.tile(np.concatenate([p.ub, p.row_ub]), (B, 1)), ohi])
+    return c, lo, hi
+
+
+def phase_dense_loop(seed):
+    """K5 against its plain version, DenseLPSolver on the CPU, on the same
+    numpy-made lanes: first that the CPU's addcmul is fused (else the plain
+    version is not what K5 computes), then float32 (the XLA engine's
+    tolerances) and float64 at DENSE_LOOP_SHAPES, and float64 at the lex
+    backend's 2AP20 batch; every output of every lane equal bit for bit.
+    Each row: K5's plan, ms (CUDA events, median of 5), the plain
+    version's seconds (one run), the bound, pivots and us a step."""
+    import numpy as np
+    import torch
+
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.solver.cuda_dense import (
+        dense_loop_plan, device_smem_cap, launch_dense_loop,
+    )
+    from moip_aira_tpu_torch.solver.simplex_dense import DenseLPSolver
+    from moip_aira_tpu_torch.solver.xla_lp import F32_TOLERANCES
+
+    smi = card()
+    fused, shares = cpu_addcmul_fused()
+    emit({"phase": "dense-loop", "check": "cpu addcmul rounds once", "fused": fused,
+          "shares_equal_once_and_rounded_twice": shares, "torch": torch.__version__})
+    if not fused:
+        raise AssertionError(f"dense-loop: the CPU addcmul is not fused: {shares}")
+    dev = torch.device("cuda", 0)
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        for name, lanes in DENSE_LOOP_SHAPES:
+            p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+            rng = np.random.default_rng(seed + 2)
+            cases.append((name, "wave lanes", dtype, p, _lanes(p, rng, golden_front(name), lanes)))
+    name, lanes = LEX_BATCH
+    p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+    cases.append((name, "lex batch, root LPs", torch.float64, p,
+                  lex_root_lanes(p, *lex_batch(p, lanes))))
+    rows = []
+    for name, kind, dtype, p, (c, lo, hi) in cases:
+        m, n = p.m_total, p.n
+        W = np.hstack([np.vstack([p.A, p.C]), -np.eye(m)])
+        tol = F32_TOLERANCES if dtype == torch.float32 else {}
+        plain = DenseLPSolver(torch.as_tensor(W, dtype=dtype), 2000, **tol)
+        args = [torch.as_tensor(a, dtype=dtype) for a in (c, lo, hi)]
+        t0 = time.perf_counter()
+        want = plain(*args)
+        plain_s = time.perf_counter() - t0
+        W_dev = torch.as_tensor(W, dtype=dtype, device=dev)
+        args_dev = [a.to(dev) for a in args]
+
+        def k5():
+            return launch_dense_loop(
+                W_dev, *args_dev, None, plain.max_iters, plain.feas_tol, plain.cost_tol,
+                plain.pivot_tol, plain.progress_tol, plain.stall_limit,
+            )
+
+        got = k5()
+        torch.cuda.synchronize()
+        got_cpu = type(got)(*(t.cpu() for t in got))
+        label = f"dense-loop {name} ({kind}, {str(dtype)[6:]})"
+        assert_bitwise(label, got_cpu, want)
+        ms = cuda_ms(k5)
+        iters = want.iters.numpy()
+        # the pivots of the plain run, whose every output K5 equals
+        pivots = plain.pivots.numpy()
+        dsize = 8 if dtype == torch.float64 else 4
+        bound_ms, bound_by = dense_bound(m, n, iters, pivots, dsize)
+        plan = dense_loop_plan(m, n + m, dtype, device_smem_cap(0))
+        err = max(float((got_cpu.obj - want.obj).abs().max()),
+                  float((got_cpu.x - want.x).abs().max()))
+        row = {
+            "phase": "dense-loop", "instance": name, "lanes": len(iters), "kind": kind,
+            "dtype": str(dtype)[6:], "m": m, "nc": n + m, "threads": plan.threads,
+            "layout": plan.layout, "smem_bytes": plan.smem_bytes,
+            "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_iters": int(iters.max()), "mean_iters": float(iters.mean()),
+            "steps": int(iters.sum()), "pivots": int(pivots.sum()),
+            "us_per_step": 1e3 * ms / max(1, int(iters.max())),
+            "status_counts": np.bincount(want.status.numpy(), minlength=4).tolist(),
+            "max_abs_err": err, "bitwise_equal": True, "card": smi,
+        }
+        emit(row)
+        rows.append(row)
+    return rows
+
+
 def lex_batch(p, lanes):
     """The initial rhs under both orderings, then golden points under the
     identity and the reversed ordering in turn."""
@@ -1539,10 +1736,12 @@ def lex_batch(p, lanes):
 
 
 def phase_lex():
-    """The lex backend (``backend="jax"``: solver/lex_torch.py, plain
-    PyTorch in f64, no kernel of K1-K4) on the card: three fronts against
-    their goldens and IPs, then one batch of the lex kernel at 2AP20 held
-    against the same call on the CPU."""
+    """The lex backend (``backend="jax"``: solver/lex_torch.py, its B&B
+    loop plain PyTorch in f64, its LPs K5, one launch a B&B step) on the
+    card: three fronts against their goldens, IPs and the CPU's B&B and LP
+    steps, then one batch of the lex kernel at 2AP20 held against the same
+    call on the CPU, steps included.  Returns the rows and K5's launches
+    on the fronts."""
     import numpy as np
     import torch
 
@@ -1555,7 +1754,8 @@ def phase_lex():
 
     smi = card()
     rows = []
-    for name, want_ips in LEX_FRONTS:
+    k5_launches = 0
+    for name, want_ips, want_bnb, want_lp in LEX_FRONTS:
         p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
         be = TorchLexBackend(p, device="cuda")
         if not be.kernel.lp.W.is_cuda:
@@ -1571,8 +1771,18 @@ def phase_lex():
             raise AssertionError(f"{name}: the lex front differs from the golden")
         if front.ip_count != want_ips:
             raise AssertionError(f"{name}: {front.ip_count} IPs, want {want_ips}")
-        if any(launches.values()):
-            raise AssertionError(f"{name}: the lex path launched {launches}")
+        k5 = launches.pop("simplex_dense")
+        if any(launches.values()) or not k5 == be.bnb_steps > 0:
+            raise AssertionError(
+                f"{name}: the lex path launched K5 {k5} times over {be.bnb_steps} "
+                f"B&B steps, and {launches}"
+            )
+        if (be.bnb_steps, be.lp_steps) != (want_bnb, want_lp):
+            raise AssertionError(
+                f"{name}: {be.bnb_steps} B&B and {be.lp_steps} LP steps, the CPU "
+                f"{want_bnb} and {want_lp}"
+            )
+        k5_launches += k5
         if be.fallback_count > MAX_FALLBACK_SHARE * be.lanes:
             raise AssertionError(
                 f"{name}: {be.fallback_count} of {be.lanes} lanes fell back "
@@ -1585,6 +1795,7 @@ def phase_lex():
             "device_batches": be.device_batches, "lanes": be.lanes,
             "fallback_count": be.fallback_count, "bnb_steps": be.bnb_steps,
             "lp_steps": be.lp_steps, "host_syncs": be.host_syncs,
+            "k5_launches": k5, "cpu_steps_equal": True,
             "us_per_lp_step": seconds / max(1, be.lp_steps) * 1e6,
             "golden": True, "card": smi,
         }
@@ -1610,6 +1821,11 @@ def phase_lex():
         kerns[dev] = kern
     if not all(np.array_equal(a, b) for a, b in zip(outs["cuda"], outs["cpu"])):
         raise AssertionError(f"{name}: the lex kernel on the card differs from the CPU")
+    steps = {d: (k.bnb_steps, k.lp_steps) for d, k in kerns.items()}
+    if steps["cuda"] != steps["cpu"] or kerns["cuda"].lp.launches != kerns["cuda"].bnb_steps:
+        raise AssertionError(
+            f"{name}: (B&B, LP) steps {steps}, K5 launches {kerns['cuda'].lp.launches}"
+        )
     status = outs["cuda"][0]
     resource = int((status == LEX_RESOURCE).sum())
     if resource > MAX_FALLBACK_SHARE * lanes:
@@ -1621,14 +1837,15 @@ def phase_lex():
         "status_counts": np.bincount(status, minlength=4).tolist(),
         "ips": int(outs["cuda"][2].sum()), "fallback_lanes": resource,
         "bnb_steps": kern.bnb_steps, "lp_steps": kern.lp_steps,
-        "host_syncs": kern.host_syncs,
+        "cpu_lp_steps": kerns["cpu"].lp_steps, "host_syncs": kern.host_syncs,
+        "k5_launches": kern.lp.launches,
         "us_per_lp_step": times["cuda"] / max(1, kern.lp_steps) * 1e6,
         "cpu_us_per_lp_step": times["cpu"] / max(1, kerns["cpu"].lp_steps) * 1e6,
         "equal_to_cpu": True, "card": smi,
     }
     emit(row)
     rows.append(row)
-    return rows
+    return rows, k5_launches
 
 
 def phase_mesh():
@@ -1865,7 +2082,7 @@ def phase_mesh_devices():
             "card": smi,
         })
     # the lex kernel's distributed round over the cards (a lex kernel and
-    # its CUDA graphs on each) against the same round on one card
+    # its K5 launches on each) against the same round on one card
     from moip_aira_tpu_torch.io import read_problem
     from moip_aira_tpu_torch.parallel.mesh import make_distributed_round, make_mesh
 
@@ -1888,10 +2105,12 @@ def phase_mesh_devices():
 
 
 def phase_xla(seed, k1_rows=(), k2_rows=(), k1_fronts=None):
-    """The wave's XLA engine on the card: its fronts against their goldens
-    beside K1's (``k1_fronts``: phase name -> rows), then its batches at
-    K1's and K2's 256-lane shapes beside their kernels (``k1_rows``,
-    ``k2_rows``), and its arithmetic against the CPU's."""
+    """The wave's XLA engine on the card (K5, one launch a wave): its
+    fronts against their goldens and the CPU's waves, LPs, re-solves and
+    LP steps, beside K1's (``k1_fronts``: phase name -> rows), then its
+    batches at K1's and K2's 256-lane shapes beside their kernels
+    (``k1_rows``, ``k2_rows``), the first 2AP20 lanes bit for bit against
+    the CPU's.  Returns the rows and K5's launches on the fronts."""
     import numpy as np
     import torch
 
@@ -1916,8 +2135,9 @@ def phase_xla(seed, k1_rows=(), k2_rows=(), k1_fronts=None):
             batch_width=2048, nodes_per_task=32,
         )
         kern = be.lp_kernel
-        if not (kern.kernel == "xla" and kern.W.is_cuda and kern.bucketed):
+        if not (kern.kernel == "xla" and kern.W.is_cuda):
             raise AssertionError(f"{name}: the XLA engine is not on the card")
+        k5_0 = LAUNCHES["simplex_dense"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         front = solve_front(p, n_workers=workers, backend=be, device="cuda", dp="off")
@@ -1926,8 +2146,15 @@ def phase_xla(seed, k1_rows=(), k2_rows=(), k1_fronts=None):
         if not np.array_equal(front.points, golden_front(name)):
             raise AssertionError(f"{name} ({dtype}): the XLA front differs from the golden")
         st = front.backend_stats
-        if not (st["kernel"] == "xla" and st["kernel_launches"] == 0 and st["graphs"] > 0):
-            raise AssertionError(f"{name}: XLA engine stats {st}")
+        k5 = LAUNCHES["simplex_dense"] - k5_0
+        if not (st["kernel"] == "xla" and st["kernel_launches"] == k5 == be.device_waves > 0):
+            raise AssertionError(f"{name}: XLA engine stats {st}, K5 launches {k5}")
+        got = (be.device_waves, be.lp_count, be.verify_fallbacks, st["lp_steps"])
+        if got != XLA_CPU_COUNTS[name, dtype]:
+            raise AssertionError(
+                f"{name} ({dtype}): (waves, LPs, re-solves, LP steps) {got}, the CPU "
+                f"{XLA_CPU_COUNTS[name, dtype]}"
+            )
         limit = XLA_FALLBACK_SHARE.get(name, MAX_FALLBACK_SHARE)
         if be.verify_fallbacks > limit * be.lp_count:
             raise AssertionError(
@@ -1942,7 +2169,8 @@ def phase_xla(seed, k1_rows=(), k2_rows=(), k1_fronts=None):
             "seconds": seconds, "ips": int(front.ip_count),
             "waves": be.device_waves, "lps": be.lp_count,
             "verify_fallbacks": be.verify_fallbacks,
-            "steps": st["lp_steps"], "syncs": st["host_syncs"], "graphs": st["graphs"],
+            "steps": st["lp_steps"], "syncs": st["host_syncs"], "k5_launches": k5,
+            "cpu_counts_equal": True,
             "mean_lanes": be.lp_count / max(1, be.device_waves),
             # the host inside the engine's calls, waiting on the card at
             # every step
@@ -1957,7 +2185,8 @@ def phase_xla(seed, k1_rows=(), k2_rows=(), k1_fronts=None):
         }
         emit(row)
         rows.append(row)
-    if any(LAUNCHES.values()):
+    k5_launches = LAUNCHES["simplex_dense"]
+    if any(v for k, v in LAUNCHES.items() if k != "simplex_dense"):
         raise AssertionError(f"the XLA engine's fronts launched {dict(LAUNCHES)}")
 
     beside = {"dense_simplex": k1_rows, "revised_simplex": k2_rows}
@@ -1969,7 +2198,7 @@ def phase_xla(seed, k1_rows=(), k2_rows=(), k1_fronts=None):
             p, t.row_scale, np.random.default_rng(seed + offset), name, LANES, dev
         )
         args = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (c, lo, hi)]
-        xla = XlaLPBatch(t.W_np, dev, max_iters=2000, max_lanes=LANES)
+        xla = XlaLPBatch(t.W_np, dev, max_iters=2000)
         steps0 = xla.steps
         out = xla(*args)
         steps = xla.steps - steps0
@@ -1990,52 +2219,31 @@ def phase_xla(seed, k1_rows=(), k2_rows=(), k1_fronts=None):
             "us_per_step": 1e3 * ms / max(1, steps),
             "max_iters": int(iters.max()), "mean_iters": float(iters.mean()),
             "optimal": int((status == 0).sum()), "cert_ok": int(cert.ok.sum()),
-            "graphs": xla.graphs,
+            "k5_launches": xla.launches,
             "kernel": kernel, "kernel_ms": None if k_row is None else k_row["ms"],
             "kernel_max_iters": None if k_row is None else k_row["max_iters"],
             "card": smi,
         }
         if name == "2AP20":
-            # the same call on the CPU, in XLA's order of float32 sums on
-            # both; the card's addcmul rounds its products, so the pivots
-            # may part, but every certified answer must agree
+            # the same call on the CPU: K5 pivots as the plain loop does
             k = XLA_CPU_LANES
             cpu = XlaLPBatch(t.W_np, "cpu", max_iters=2000)(*(a[:k].cpu() for a in args))
-            certs = [
-                LPVerifier(t.W_np).certify(
-                    c[:k], lo[:k], hi[:k], o.status[:k].cpu().numpy(),
-                    o.basis[:k].cpu().numpy(), o.at_upper[:k].cpu().numpy().astype(bool),
-                )
-                for o in (out, cpu)
-            ]
-            both = certs[0].ok & certs[1].ok
-            st_card, st_cpu = status[:k], cpu.status.numpy()
-            opt = both & (st_card == 0)
-            o_card, o_cpu = certs[0].obj[opt], certs[1].obj[opt]
-            if not (
-                both.sum() >= k // 2
-                and np.array_equal(st_card[both], st_cpu[both])
-                and np.all(np.abs(o_card - o_cpu) <= CERT_RTOL * np.maximum(1.0, np.abs(o_cpu)))
-            ):
-                raise AssertionError(f"XLA engine {name}: the card's certified answers differ from the CPU's")
+            head = type(out)(*(getattr(out, f)[:k].cpu() for f in out._fields))
+            assert_bitwise(f"XLA engine {name}, first {k} lanes", head, cpu)
             row["cpu_lanes"] = k
-            row["cpu_certified_equal"] = int(both.sum())
-            row["cpu_bitwise_equal_lanes"] = int(sum(
-                all(torch.equal(getattr(out, f)[i].cpu(), getattr(cpu, f)[i]) for f in out._fields)
-                for i in range(k)
-            ))
+            row["cpu_bitwise_equal_lanes"] = k
         emit(row)
         rows.append(row)
-    if any(LAUNCHES.values()):
+    if any(v for k, v in LAUNCHES.items() if k != "simplex_dense"):
         raise AssertionError(f"the XLA engine's batches launched {dict(LAUNCHES)}")
-    return rows
+    return rows, k5_launches
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the kernel phase's LP lanes (default 0)")
-    ap.add_argument("--only", choices=("mesh-devices", "xla"),
+    ap.add_argument("--only", choices=("mesh-devices", "xla", "dense-loop"),
                     help="run the probe, the build and this phase alone")
     args = ap.parse_args()
 
@@ -2057,6 +2265,9 @@ def main() -> int:
         return 0
     if args.only == "xla":
         phase_xla(args.seed)
+        return 0
+    if args.only == "dense-loop":
+        phase_dense_loop(args.seed)
         return 0
     k1_rows = phase_kernels(args.seed)
     k2_rows = phase_revised(args.seed)
@@ -2081,10 +2292,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         k4_rows, plain_fronts = phase_dp_kernel(tmp)
         dp_main = phase_dp(tmp, plain_fronts)
-    phase_lex()
+    k5_rows = phase_dense_loop(args.seed)
+    _, lex_k5 = phase_lex()
     phase_mesh()
     phase_mesh_devices()
-    phase_xla(args.seed, k1_rows, k2_rows, {"cli": cli, "real": [real]})
+    _, xla_k5 = phase_xla(args.seed, k1_rows, k2_rows, {"cli": cli, "real": [real]})
     if "jax" in sys.modules or "moip_aira_tpu" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -2127,6 +2339,25 @@ def main() -> int:
             "library_ms": None,
         }
 
+    def k5_entry(rows, launches):
+        # one launch on the lex backend's 2AP20 batch (its root LPs, f64);
+        # no single PyTorch call computes a batched simplex loop
+        row = next(r for r in rows if r["kind"].startswith("lex batch"))
+        return {
+            "name": "simplex_dense",
+            "route": "cuda",
+            "source": "moip_aira_tpu_torch/csrc/simplex_dense.cu",
+            # no Pallas kernel: the XLA loop of the reference's solver
+            "replaces": "moip_aira_tpu/solver/simplex_jax.py:283",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+        }
+
     emit({
         "kernels": [
             entry("dense_simplex", "moip_aira_tpu/solver/pallas_lp.py:116",
@@ -2136,6 +2367,8 @@ def main() -> int:
             entry("bb_fragment", "moip_aira_tpu/solver/pallas_bb.py:211",
                   k3_rows, frag, "2AP20"),
             dp_entry(k4_rows, dp_main),
+            # K5's main paths: the lex backend's and the XLA engine's fronts
+            k5_entry(k5_rows, lex_k5 + xla_k5),
         ]
     })
     emit({

@@ -49,8 +49,8 @@ class FrontResult:
     #: lanes, launches] rows, ``launch_lanes``), summed over the devices of
     #: its mesh, and per device (keyed ``str(device)``) the lanes,
     #: ``device_lanes``, and kernel launches, ``device_launches`` (the
-    #: wave's XLA engine, kernel "xla", launches none and adds its solver's
-    #: ``lp_steps``, ``host_syncs`` and CUDA ``graphs``); for
+    #: wave's XLA engine, kernel "xla", counts K5's launches and adds its
+    #: solver's ``lp_steps`` and ``host_syncs``); for
     #: the knapsack front DP, backend "kp_front", kernel "kp_dp" (K4) with
     #: its launches, the expanded items, the table cells and the engine;
     #: for the lex backend ("jax"), its batches, lanes, fallbacks and the
@@ -104,10 +104,9 @@ def backend_stats(be) -> dict:
             stats["launch_lanes"] = sorted(
                 [shape, C, lanes, k] for (shape, C, lanes), k in by_lanes.items()
             )
-        if hasattr(first, "steps"):  # the XLA engine: its loop, no kernel
+        if hasattr(first, "steps"):  # the XLA engine: its loop's counters
             stats["lp_steps"] = sum(int(k.steps) for k in kernels.values())
             stats["host_syncs"] = sum(int(k.syncs) for k in kernels.values())
-            stats["graphs"] = sum(int(k.graphs) for k in kernels.values())
         if hasattr(be, "device_lanes"):
             # lanes and launches per device, keyed str(device)
             stats["device_lanes"] = dict(be.device_lanes)

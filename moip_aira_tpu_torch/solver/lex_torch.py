@@ -4,7 +4,9 @@
 One call solves a batch of CLMOIP subproblems on one device: for each lane,
 a loop over the objective permutation runs a depth-first branch and bound
 (a fixed-capacity node stack) whose LP relaxations are the f64 dense simplex
-of solver/simplex_dense.py on the unscaled system ``[A; C | -I]``.
+of solver/simplex_dense.py on the unscaled system ``[A; C | -I]``: on a
+card one launch of K5 (csrc/simplex_dense.cu) a B&B step, on the CPU its
+plain loop.  The B&B loop itself is plain PyTorch on either.
 
 The reference is a ``vmap`` of a ``lax.scan`` over stages whose body is a
 ``lax.while_loop`` over B&B nodes, each node a ``lax.while_loop`` over
@@ -54,7 +56,8 @@ class LexKernel:
 
     Counters: ``bnb_steps`` (steps of the B&B loops, one node of every
     running lane), ``lp_steps`` (steps of the LP loops, one pivot of every
-    running lane) and ``host_syncs`` (the host reading a loop condition)."""
+    running lane; the same on the card and on the CPU) and ``host_syncs``
+    (the host reading a loop condition, or K5's step count once a call)."""
 
     def __init__(
         self,

@@ -11,37 +11,33 @@ the dtype of W (float64 for the lex backend).
 
 The reference's ``lax.while_loop`` under ``vmap`` runs until no lane is
 RUNNING, and a lane whose loop condition is false is frozen: its state is
-left as it was.  Here the same loop is written out by hand over the batch:
-every step computes the pivot of every lane and keeps it only where the lane
-is still running, and the host reads the loop condition after each step.
-Sums are ``torch.sum`` and ``@`` reductions, and the rank-1 tableau update
-and the basic values' step are fused multiply-adds (``addcmul``), as XLA's
-CPU backend computes them: on the CPU the pivots of the bundled instances
-then follow the reference's bit for bit.  This is not K1's plain version
-(``simplex_torch.dense_lp_batch_ref``), which sums term by term to match
-its CUDA kernel and has its own pivot floor and warm start.
+left as it was.  On the CPU the same loop is written out by hand over the
+batch: every step computes the pivot of every lane and keeps it only where
+the lane is still running, and the host reads the loop condition after
+each step.  On a CUDA device the whole loop is K5 (csrc/simplex_dense.cu,
+launched by solver/cuda_dense.py), one launch a call; this loop is its
+plain version.
 
-In float32 (the wave's XLA engine, solver/xla_lp.py) that is not enough:
-there the order of a sum decides pivots.  So every float32 sum follows
-XLA's CPU code for the reference (``xla_sum``, ``xla_dot``): term by term
-up to 32 terms, longer axes in windows of 32 zero-padded at both ends; a
-short sum of products is a chain of fused multiply-adds; and the basic
-values' step rounds row 0's product apart, as XLA's unrolled loop does.
-On the CPU the float32 pivots then equal the reference's bit for bit
-(tests/test_torch_wave_xla.py).  On a CUDA device the order is the same,
-but PyTorch's CUDA ``addcmul`` rounds the product before it adds, so a
-fused multiply-add there is two roundings: where a product is inexact the
-card's pivots may leave the CPU's (PERF.md).  The float64 path is as above.
-
-On a CUDA device the start and each step of the loop are CUDA graphs,
-captured once per batch size: a step is about 140 small kernels, which the
-host would otherwise launch one at a time.
+Every sum follows XLA's CPU code for the reference, in float32 and float64
+alike (``xla_sum``, ``xla_dot``): term by term up to 32 terms, longer axes
+in windows of 32 zero-padded at both ends; a short sum of products is a
+chain of fused multiply-adds; the rank-1 tableau update and the basic
+values' step are fused multiply-adds (``addcmul``, fused on the CPU), and
+the step rounds row 0's product apart when m <= 32, as XLA's unrolled loop
+does.  The pivots then equal the reference's bit for bit
+(tests/test_torch_wave_xla.py, tests/test_torch_dense_order.py), and no
+result depends on a BLAS or on the CPU's vector width.  K5 computes each
+of these operations in the same order, so on the card the pivots are the
+same.  This is not K1's plain version (``simplex_torch.dense_lp_batch_ref``),
+which sums term by term to match its CUDA kernel and has its own pivot
+floor and warm start.
 """
 
 from __future__ import annotations
 
 import torch
 
+from moip_aira_tpu_torch.solver.cuda_dense import check_lanes, launch_dense_loop
 from moip_aira_tpu_torch.solver.simplex_np import (
     COST_TOL,
     FEAS_TOL,
@@ -60,15 +56,29 @@ from moip_aira_tpu_torch.solver.simplex_torch import (
 __all__ = ["DenseLPSolver", "LPOutcome", "make_lp_solver"]
 
 
+#: the plain loop steps only its running lanes once at most half of the
+#: lanes it holds still run and they hold at least this many tableau
+#: entries: below it a step costs its operations' overhead, not their size
+#: (on a CPU, 32 2AP40 lanes took a third of the time so, the lex backend's
+#: G2AP05 front, 444 entries a lane, a tenth more)
+COMPACT_MIN_ENTRIES = 1 << 16
+
+
 class DenseLPSolver:
     """``solve(c, lo, hi, active=None) -> LPOutcome`` over a batch of lanes,
     closed over the system matrix W = [A | -I] (m, n + m).
 
-    ``c``, ``lo`` and ``hi`` are (B, n + m) tensors on W's device, with
-    +-inf allowed in the bounds.  A lane whose ``active`` entry is False
-    takes no pivot and reports INFEASIBLE.  ``steps`` counts the loop's
-    steps (one pivot or bound flip of every running lane) and ``syncs`` the
-    times the host read the loop condition from the device."""
+    ``c``, ``lo`` and ``hi`` are contiguous (B, n + m) tensors of W's dtype
+    on W's device, with +-inf allowed in the bounds.  A lane whose
+    ``active`` entry is False takes no pivot and reports INFEASIBLE.  On a
+    CUDA device a call is one launch of K5; on the CPU it runs the plain
+    loop.  ``steps`` counts the loop's steps (one pivot or bound flip of
+    every running lane; the largest ``iters`` of each call), ``syncs`` the
+    times the host read the device (the plain loop's condition after each
+    step, K5's largest ``iters`` once a call) and ``launches`` K5's
+    launches.  ``pivots`` holds, after a call of the plain loop, each
+    lane's pivots: its ``iters`` less its bound flips and its last,
+    pricing-only step (K5 does not count them; None until then)."""
 
     def __init__(
         self,
@@ -80,7 +90,7 @@ class DenseLPSolver:
         progress_tol: float = 1e-12,
         stall_limit: int = STALL_LIMIT,
     ):
-        self.W = W
+        self.W = W.contiguous()
         self.m, self.nc = W.shape
         self.n = self.nc - self.m
         self.max_iters = max_iters
@@ -89,72 +99,49 @@ class DenseLPSolver:
         self.pivot_tol = pivot_tol
         self.progress_tol = progress_tol
         self.stall_limit = stall_limit
-        #: in float32, every sum is the one XLA's CPU backend computes for
-        #: the reference (``xla_sum``, ``xla_dot``): float32 rounding makes
-        #: the order of a sum decide pivots, float64 rarely does
-        self.xla_f32 = W.dtype == torch.float32
-        self.T0 = -W  # the tableau of the logical basis B = -I
+        self.T0 = -self.W  # the tableau of the logical basis B = -I
         self.neg_col = -torch.arange(self.nc, device=W.device, dtype=W.dtype)
         self.steps = 0
         self.syncs = 0
-        self._graphs = {}  # batch size -> (inputs, lanes, start and step graphs)
+        self.launches = 0
+        self.pivots = None
 
     def __call__(self, c, lo, hi, active=None) -> LPOutcome:
-        if c.is_cuda:
-            S, step = self._graphed(c, lo, hi, active)
-        else:
-            S = self._start(c, lo, hi, active)
-            step = lambda: self._step(S)  # noqa: E731
+        if self.W.is_cuda:
+            out = launch_dense_loop(
+                self.W, c, lo, hi, active, self.max_iters, self.feas_tol,
+                self.cost_tol, self.pivot_tol, self.progress_tol, self.stall_limit,
+            )
+            if c.shape[0]:  # a launch, and one host read of its step count
+                self.launches += 1
+                self.syncs += 1
+                self.steps += int(out.iters.max())
+            return out
+        check_lanes(self.W, c, lo, hi, active)
+        if c.device.type != "cpu":
+            raise ValueError(f"no dense simplex for device {c.device}")
+        full = S = self._start(c, lo, hi, active)
+        rows = None  # the lanes S holds, where it holds fewer than all
         while True:
             self.syncs += 1
-            if not bool(S.any_run):
+            running = int(S.run.sum())
+            if not running:
                 break
+            held = S.run.shape[0]
+            if 2 * running <= held and held * self.m * self.nc >= COMPACT_MIN_ENTRIES:
+                # step only the running lanes: the others are frozen, and
+                # no lane's arithmetic reads another's
+                keep = S.run.nonzero().squeeze(1)
+                if rows is not None:
+                    full.put(rows, S)
+                rows = keep if rows is None else rows[keep]
+                S = S.take(keep)
             self.steps += 1
-            step()
-        return self._finish(S)
-
-    def _graphed(self, c, lo, hi, active):
-        """On a CUDA device the start and each step are CUDA graphs of their
-        small kernels (a step has about 140), captured once per batch size
-        on buffers each call copies its lanes into: the host then launches
-        one graph a step instead of one kernel at a time."""
-        B = c.shape[0]
-        if active is None:
-            active = torch.ones(B, dtype=torch.bool, device=c.device)
-        if B not in self._graphs:
-            inp = (c.clone(), lo.clone(), hi.clone(), active.clone())
-            static = self._start(*inp)
-
-            def start():
-                for key, value in vars(self._start(*inp)).items():
-                    buf = getattr(static, key)
-                    if value is not buf:
-                        buf.copy_(value)
-
-            with torch.cuda.device(c.device):
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    for _ in range(2):  # warm-up: cuBLAS and the allocator
-                        start()
-                        self._step(static)
-                torch.cuda.current_stream().wait_stream(side)
-                # captured on a stream of this card: torch.cuda.graph's
-                # default capture stream belongs to the card current at the
-                # process's first capture, and capturing another card's
-                # work on it fails
-                start_graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(start_graph, stream=side):
-                    start()
-                step_graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(step_graph, stream=side):
-                    self._step(static)
-            self._graphs[B] = (inp, static, start_graph, step_graph)
-        inp, static, start_graph, step_graph = self._graphs[B]
-        for buf, value in zip(inp, (c, lo, hi, active)):
-            buf.copy_(value)
-        start_graph.replay()
-        return static, step_graph.replay
+            self._step(S)
+        if rows is not None:
+            full.put(rows, S)
+        self.pivots = full.npiv
+        return self._finish(full)
 
     def _start(self, c, lo, hi, active):
         """Each lane's constants and its state at the logical basis."""
@@ -181,10 +168,7 @@ class DenseLPSolver:
         S.atu[:, :n] = ~fin_lo[:, :n] & fin_hi[:, :n]
         S.basis = (n + torch.arange(m, device=dev)).expand(B, m).clone()
         zv = torch.where(in_basis, 0.0, torch.where(S.atu, S.zup, S.zlo))
-        if self.xla_f32:
-            S.xB = -xla_dot(self.T0[None], zv[:, None, :], 2)
-        else:
-            S.xB = -(self.T0[None] * zv[:, None, :]).sum(2)
+        S.xB = -xla_dot(self.T0[None], zv[:, None, :], 2)
         S.T = self.T0.expand(B, m, nc).clone()
 
         skip = (lo > hi + self.feas_tol).any(1)  # an empty box is INFEASIBLE
@@ -195,8 +179,8 @@ class DenseLPSolver:
         S.stall = torch.zeros(B, dtype=torch.int32, device=dev)
         S.last = torch.full((B,), float("inf"), dtype=dt, device=dev)
         S.it = torch.zeros(B, dtype=torch.int32, device=dev)
+        S.npiv = torch.zeros(B, dtype=torch.int32, device=dev)
         S.run = (S.status == RUNNING) & (S.it < self.max_iters)
-        S.any_run = S.run.any()
         return S
 
     def _step(self, S) -> None:
@@ -214,12 +198,9 @@ class DenseLPSolver:
         xB = S.xB
         below = xB < bl - ft
         above = xB > bh + ft
-        if self.xla_f32:
-            infeas = xla_sum(torch.where(below, bl - xB, 0.0), 1) + xla_sum(
-                torch.where(above, xB - bh, 0.0), 1
-            )
-        else:
-            infeas = torch.where(below, bl - xB, torch.where(above, xB - bh, 0.0)).sum(1)
+        infeas = xla_sum(torch.where(below, bl - xB, 0.0), 1) + xla_sum(
+            torch.where(above, xB - bh, 0.0), 1
+        )
         p1 = S.p1 & (infeas > ft)  # phase 1 ends once the basis is feasible
         entered = S.p1 & ~p1
         stall = torch.where(entered, 0, S.stall)
@@ -229,12 +210,8 @@ class DenseLPSolver:
         cB = torch.where(p1[:, None], above.to(dt) - below.to(dt), cBb)
         in_basis = torch.zeros_like(S.atu).scatter_(1, basis, True)
         zv = torch.where(in_basis, 0.0, torch.where(S.atu, S.zup, S.zlo))
-        if self.xla_f32:
-            d = torch.where(p1[:, None], 0.0, S.c) - xla_dot(cB[:, :, None], S.T, 1)
-            cur = torch.where(p1, infeas, xla_dot(cBb, xB, 1) + xla_sum(S.c * zv, 1))
-        else:
-            d = torch.where(p1[:, None], 0.0, S.c) - (cB[:, None, :] @ S.T).squeeze(1)
-            cur = torch.where(p1, infeas, (cBb * xB).sum(1) + (S.c * zv).sum(1))
+        d = torch.where(p1[:, None], 0.0, S.c) - xla_dot(cB[:, :, None], S.T, 1)
+        cur = torch.where(p1, infeas, xla_dot(cBb, xB, 1) + xla_sum(S.c * zv, 1))
 
         # the entering column: the largest |d| among the columns that can
         # move (up from a lower bound on d < 0, down from an upper one on
@@ -301,7 +278,7 @@ class DenseLPSolver:
         # row r and swaps q into row r of the tableau
         newval = zv.gather(1, q) + sigma * theta
         xB_new = torch.addcmul(xB, eta, theta)
-        if self.xla_f32 and m <= XLA_WINDOW:
+        if m <= XLA_WINDOW:
             # XLA unrolls this loop over at most XLA_WINDOW rows and keeps
             # row 0's product apart from its sum: one rounding more there
             xB_new[:, 0] = xB[:, 0] + eta[:, 0] * theta[:, 0]
@@ -325,9 +302,9 @@ class DenseLPSolver:
         S.last.copy_(torch.where(run, torch.minimum(last, cur), S.last))
         S.p1.copy_(torch.where(run, p1, S.p1))
         S.it.add_(run.to(torch.int32))
+        S.npiv.add_(do_pivot.squeeze(1).to(torch.int32))
         S.status.copy_(status)
         S.run.copy_((status == RUNNING) & (S.it < self.max_iters))
-        S.any_run.copy_(S.run.any())
 
     def _finish(self, S) -> LPOutcome:
         status = torch.where(S.status == RUNNING, ITER_LIMIT, S.status).to(torch.int32)
@@ -336,7 +313,7 @@ class DenseLPSolver:
         z = z.scatter(1, S.basis, S.xB)
         return LPOutcome(
             status=status,
-            obj=xla_dot(S.c, z, 1) if self.xla_f32 else (S.c * z).sum(1),
+            obj=xla_dot(S.c, z, 1),
             x=z[:, : self.n],
             basis=S.basis.clone(),
             at_upper=S.atu.clone(),
@@ -344,17 +321,18 @@ class DenseLPSolver:
         )
 
 
-#: XLA's CPU backend sums at most this many terms in one pass; a longer
-#: axis is cut into windows of this many terms, zero-padded at both ends
+#: XLA's CPU backend sums at most this many terms in one pass, in float32
+#: and float64 alike; a longer axis is cut into windows of this many terms,
+#: zero-padded at both ends
 XLA_WINDOW = 32
 
 
 def xla_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The sum of ``x`` over ``dim`` in the order XLA's CPU backend adds a
-    float32 reduction: term by term from the first while the axis has at
-    most ``XLA_WINDOW`` terms, else each window of ``XLA_WINDOW`` terms so
-    (the padding split low = pad // 2, high = the rest), then the windows'
-    sums the same way."""
+    float32 or float64 reduction: term by term from the first while the
+    axis has at most ``XLA_WINDOW`` terms, else each window of
+    ``XLA_WINDOW`` terms so (the padding split low = pad // 2, high = the
+    rest), then the windows' sums the same way."""
     x = x.movedim(dim, -1)
     L = x.shape[-1]
     if L > XLA_WINDOW:
@@ -363,31 +341,53 @@ def xla_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
         x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
         x = x.unflatten(-1, (nw, XLA_WINDOW))
         return xla_sum(xla_sum(x, -1), -1)
-    acc = x[..., 0]
-    for i in range(1, L):
-        acc = acc + x[..., i]
+    terms = x.unbind(-1)
+    if L == 1:
+        return terms[0]
+    acc = terms[0] + terms[1]
+    for t in terms[2:]:
+        acc.add_(t)
     return acc
 
 
 def xla_dot(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
     """The sum over ``dim`` of the products ``a * b`` (broadcast) as XLA's
-    CPU backend computes it in float32: a chain of fused multiply-adds,
-    term by term, while the axis has at most ``XLA_WINDOW`` terms, else the
-    rounded products summed by ``xla_sum``."""
+    CPU backend computes it in float32 and float64: a chain of fused
+    multiply-adds (``addcmul``, fused on the CPU), term by term, while the
+    axis has at most ``XLA_WINDOW`` terms, else the rounded products summed
+    by ``xla_sum``."""
     a, b = torch.broadcast_tensors(a, b)
     a = a.movedim(dim, -1)
     b = b.movedim(dim, -1)
     L = a.shape[-1]
     if L > XLA_WINDOW:
         return xla_sum(a * b, -1)
-    acc = a[..., 0] * b[..., 0]
-    for i in range(1, L):
-        acc = torch.addcmul(acc, a[..., i], b[..., i])
+    terms = zip(a.unbind(-1), b.unbind(-1))
+    u, v = next(terms)
+    acc = u * v
+    for u, v in terms:
+        acc.addcmul_(u, v)
     return acc
 
 
 class _Lanes:
-    """One call's lanes: constants and simplex state, as tensors."""
+    """One call's lanes: constants and simplex state, as tensors whose
+    first axis is the lane (``neg_col`` is shared)."""
+
+    #: what a step changes
+    STATE = ("atu", "basis", "xB", "T", "status", "p1", "stall", "last", "it", "npiv", "run")
+
+    def take(self, rows: torch.Tensor) -> "_Lanes":
+        """The lanes ``rows``, copied."""
+        sub = _Lanes()
+        for k, v in vars(self).items():
+            setattr(sub, k, v if k == "neg_col" else v[rows])
+        return sub
+
+    def put(self, rows: torch.Tensor, sub: "_Lanes") -> None:
+        """Write the state of ``sub``'s lanes back as the lanes ``rows``."""
+        for k in self.STATE:
+            getattr(self, k)[rows] = getattr(sub, k)
 
 
 def make_lp_solver(

@@ -148,7 +148,7 @@ class WaveLexBackend:
     their plain versions keep the kernels' arithmetic covered, so ``"auto"``
     stays with them.  ``"xla"`` is the reference's XLA engine
     (solver/xla_lp.py: the dense simplex of solver/simplex_dense.py over the
-    unscaled system, no hand-written kernel, CUDA graphs on a card), in
+    unscaled system, one launch of K5 a wave on a card), in
     ``dtype`` ``"float32"`` (loose tolerances, XLA's order of sums) or
     ``"float64"``; the kernels always run float32, as the reference's Pallas
     engines do, whatever ``dtype`` says.  Unlike the reference, whose
@@ -263,8 +263,7 @@ class WaveLexBackend:
 
             def make_kernel(dev):
                 return XlaLPBatch(
-                    lpt.W_np, dev, max_iters=lp_max_iters, dtype=self.dtype,
-                    max_lanes=batch_width,
+                    lpt.W_np, dev, max_iters=lp_max_iters, dtype=self.dtype
                 )
         else:
             make = make_cuda_rev_batch if engine == "revised" else make_cuda_lp_batch

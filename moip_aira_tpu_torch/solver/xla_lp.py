@@ -5,15 +5,13 @@ The port of the reference wave's ``engine="xla"``
 (``moip_aira_tpu/solver/wave.py:317-352``): ``simplex_jax.make_lp_solver``
 vmapped and jitted over the unscaled system ``[A; C | -I]``.  In float32 it
 runs with loose tolerances (every lane is then certified in float64 by the
-wave) and its sums in the order XLA's CPU backend computes them
-(``simplex_dense.xla_sum``), so its pivots follow the reference's; in
-float64 with ``simplex_jax``'s defaults.  No hand-written kernel runs here:
-``launches`` stays 0 and ``kernel`` is ``"xla"``.
-
-On a CUDA device the solver's start and step are CUDA graphs, one pair per
-batch size; the lanes of a call are padded up to the next power of two (at
-most ``max_lanes``) with the reference's trivial LP, c = lo = hi = 0, which
-is OPTIMAL at its first step, and the padding's outputs are dropped.
+wave), in float64 with ``simplex_jax``'s defaults; in both the sums follow
+XLA's CPU order (``simplex_dense.xla_sum``), so its pivots follow the
+reference's.  On a CUDA device each call is one launch of K5
+(csrc/simplex_dense.cu), which pivots as the CPU does; ``launches`` counts
+them (``LAUNCHES["simplex_dense"]``), and ``kernel`` stays ``"xla"``, the
+engine's name.  K5 and the plain loop take any number of lanes, so a
+call runs its lanes as they come.
 """
 
 from __future__ import annotations
@@ -32,27 +30,19 @@ F32_TOLERANCES = dict(feas_tol=1e-2, cost_tol=1e-2, pivot_tol=1e-3, progress_tol
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
-def bucket(lanes: int, max_lanes: int) -> int:
-    """The batch a call of ``lanes`` lanes runs as: the next power of two,
-    at most ``max(lanes, max_lanes)``."""
-    return min(1 << max(lanes - 1, 0).bit_length(), max(lanes, max_lanes))
-
-
 class XlaLPBatch:
     """``__call__(c, lo, hi, wb, wa) -> LPOutcome`` over the system matrix
     ``W_np`` = [A | -I] (m, n + m), on ``device`` in ``dtype``.
 
     ``wb``/``wa`` (warm bases) are accepted and ignored, as the reference's
-    ``_run_xla`` ignores them.  ``steps``, ``syncs`` and ``graphs`` count the
-    solver's loop steps, its host reads of the loop condition and the CUDA
-    graphs it captured (one start and one step graph a batch size);
-    ``seconds`` is the host's time inside the calls, which wait for the
-    device at every step."""
+    ``_run_xla`` ignores them.  ``steps``, ``syncs`` and ``launches`` count
+    the solver's loop steps, its host reads of the device and K5's
+    launches; ``seconds`` is the host's time inside the calls, each of
+    which waits for its results."""
 
     kernel = "xla"
 
-    def __init__(self, W_np, device, max_iters: int = 2000, dtype: str = "float32",
-                 max_lanes: int = 256):
+    def __init__(self, W_np, device, max_iters: int = 2000, dtype: str = "float32"):
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {tuple(DTYPES)}, got {dtype!r}")
         self.dtype = DTYPES[dtype]
@@ -61,14 +51,13 @@ class XlaLPBatch:
         self.m, nc = self.W.shape
         self.n = nc - self.m
         self.max_iters = int(max_iters)
-        self.max_lanes = int(max_lanes)
         tol = F32_TOLERANCES if self.dtype == torch.float32 else {}
         self.solver = DenseLPSolver(self.W, self.max_iters, **tol)
-        self.launches = 0  # no hand-written kernel runs on this engine
-        #: pad each call to its bucket: on a card, where each batch size
-        #: captures graphs of its own
-        self.bucketed = self.device.type == "cuda"
         self.seconds = 0.0
+
+    @property
+    def launches(self) -> int:
+        return self.solver.launches
 
     @property
     def steps(self) -> int:
@@ -77,10 +66,6 @@ class XlaLPBatch:
     @property
     def syncs(self) -> int:
         return self.solver.syncs
-
-    @property
-    def graphs(self) -> int:
-        return 2 * len(self.solver._graphs)
 
     def __call__(self, c, lo, hi, wb=None, wa=None) -> LPOutcome:
         t0 = time.perf_counter()
@@ -93,18 +78,8 @@ class XlaLPBatch:
                 raise TypeError(f"{name} must be {self.dtype}, got {t.dtype}")
             if tuple(t.shape) != (B, nc):
                 raise ValueError(f"{name} must have shape {(B, nc)}, got {tuple(t.shape)}")
-        if self.bucketed:
-            P = bucket(B, self.max_lanes)
-            if P > B:
-                pad = (0, 0, 0, P - B)  # the trivial LP: c = lo = hi = 0
-                c, lo, hi = (torch.nn.functional.pad(t, pad) for t in (c, lo, hi))
         out = self.solver(c, lo, hi)
         self.seconds += time.perf_counter() - t0
-        return LPOutcome(
-            status=out.status[:B],
-            obj=out.obj[:B],
-            x=out.x[:B],
-            basis=out.basis[:B].to(torch.int32),
-            at_upper=out.at_upper[:B].to(torch.int32),
-            iters=out.iters[:B],
+        return out._replace(
+            basis=out.basis.to(torch.int32), at_upper=out.at_upper.to(torch.int32)
         )

@@ -1,7 +1,7 @@
-"""K1, K2, K3 and K4, the CUDA kernels, against their plain PyTorch
-versions on the card; the lex backend's kernel (plain PyTorch, CUDA graphs
-on the card) against the same call on the CPU, and the mesh of the visible
-cards.
+"""K1, K2, K3, K4 and K5, the CUDA kernels, against their plain PyTorch
+versions on the card; the lex backend's kernel (plain PyTorch B&B, K5 for
+its LPs on the card) and the wave's XLA engine (K5) against the same calls
+on the CPU, and the mesh of the visible cards.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no jax, so on a machine with a card and without jax it runs alone:
@@ -604,21 +604,25 @@ def lex_case(name, lanes, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,lanes", [("G2AP05", 32), ("G3AP05", 32), ("G3KP10", 5)])
 def test_lex_kernel_on_the_card_equals_the_cpu(cuda_device, name, lanes):
-    """The lex kernel (plain PyTorch in f64; on the card each LP step is one
-    CUDA graph) gives the CPU's statuses, results and IPs, twice in a row
-    (the second call replays the captured graphs), and its results stay on
-    the card."""
+    """The lex kernel (plain PyTorch B&B in f64; on the card each B&B
+    step's LPs are one launch of K5) gives the CPU's statuses, results and
+    IPs and the CPU's LP and B&B steps, twice in a row, and its results
+    stay on the card."""
     from moip_aira_tpu_torch.solver.lex_torch import make_lex_kernel
 
     p, rhs, perm = lex_case(name, lanes, seed=3)
-    want = [t.numpy() for t in make_lex_kernel(p, device="cpu")(rhs, perm)]
+    cpu = make_lex_kernel(p, device="cpu")
+    want = [t.numpy() for t in cpu(rhs, perm)]
     kern = make_lex_kernel(p, device=cuda_device)
     for _ in range(2):
         out = kern(rhs, perm)
         assert all(t.is_cuda for t in out)
         for a, b in zip(out, want):
             assert np.array_equal(a.cpu().numpy(), b)
-    assert kern.lp.W.is_cuda and kern.lp_steps > 0
+    assert kern.lp.W.is_cuda and kern.lp_steps == 2 * cpu.lp_steps > 0
+    assert kern.bnb_steps == 2 * cpu.bnb_steps
+    # one launch a B&B step, and no plain LP step on the card
+    assert kern.lp.launches == kern.bnb_steps and kern.lp.syncs == kern.bnb_steps
 
 
 @pytest.mark.cuda
@@ -730,7 +734,7 @@ def test_wave_over_a_mesh_of_the_card_and_the_host(cuda_device, fragments):
 @pytest.mark.cuda
 def test_distributed_round_over_two_cards_equals_one_card(two_cards):
     """The lex kernel's distributed round with a domain on each card (a lex
-    kernel, and its CUDA graphs, on each) gives the round of the same mesh
+    kernel, and its K5 launches, on each) gives the round of the same mesh
     on one card."""
     from moip_aira_tpu_torch.parallel.mesh import make_distributed_round, make_mesh
 
@@ -749,25 +753,25 @@ def test_distributed_round_over_two_cards_equals_one_card(two_cards):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,count", [("G2AP05.lp", 21), ("2AP20.lp", 37)])
-def test_xla_engine_bucketed_lanes_equal_the_unbucketed(cuda_device, name, count):
-    """The wave's XLA engine (plain PyTorch, CUDA graphs a batch size) pads a
-    call to its bucket of lanes with the trivial LP: on the card the padded
-    call gives the unpadded call's outputs bit for bit, twice in a row (the
-    second replays the graphs)."""
-    from moip_aira_tpu_torch.solver.xla_lp import XlaLPBatch, bucket
+def test_xla_engine_launches_k5_once_a_call(cuda_device, name, count):
+    """The wave's XLA engine on the card is one launch of K5 a call, with
+    one host read: twice in a row a call gives the CPU's outputs and loop
+    steps bit for bit, and its outputs stay on the card."""
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
+    from moip_aira_tpu_torch.solver.xla_lp import XlaLPBatch
 
     t, args = lanes(name, cuda_device, seed=7, count=count, scaled=False)
-    padded = XlaLPBatch(t.W_np, cuda_device, max_lanes=64)
-    plain = XlaLPBatch(t.W_np, cuda_device, max_lanes=64)
-    plain.bucketed = False
-    assert padded.bucketed and bucket(count, 64) > count
+    card = XlaLPBatch(t.W_np, cuda_device)
+    cpu = XlaLPBatch(t.W_np, "cpu")
+    want = cpu(*(a.cpu() for a in args))
+    k5 = LAUNCHES["simplex_dense"]
     for _ in range(2):
-        a, b = padded(*args), plain(*args)
-        for f in a._fields:
-            assert getattr(a, f).is_cuda
-            assert torch.equal(getattr(a, f), getattr(b, f)), f
-    assert padded.graphs == plain.graphs == 2 and padded.launches == 0
-    assert set(padded.solver._graphs) == {bucket(count, 64)}
+        got = card(*args)
+        for f in got._fields:
+            assert getattr(got, f).is_cuda
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert card.launches == 2 and LAUNCHES["simplex_dense"] - k5 == 2
+    assert card.steps == 2 * cpu.steps > 0 and card.syncs == 2
 
 
 def golden_points(name):
@@ -782,9 +786,9 @@ def golden_points(name):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_xla_engine_front_on_the_card(cuda_device, dtype):
     """G3AP05 through the scheduler on the XLA engine: the golden front on
-    the card with no kernel launched and graphs captured, and the CPU's
-    IPs (the pivots may differ: the card's addcmul rounds its product, and
-    its float64 sums take another order)."""
+    the card with K5 launched once a wave and no other kernel, and the
+    CPU's IPs, waves, LPs, re-solves and LP steps (K5 pivots as the CPU
+    does)."""
     from moip_aira_tpu_torch.api import solve_front
     from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
     from moip_aira_tpu_torch.solver.wave import WaveLexBackend
@@ -795,10 +799,119 @@ def test_xla_engine_front_on_the_card(cuda_device, dtype):
         be = WaveLexBackend(p, device=dev, engine="xla", dtype=dtype)
         reset_launches()
         front = solve_front(p, n_workers=2, backend=be, device=dev, dp="off")
-        assert not any(LAUNCHES.values())
+        k5 = LAUNCHES["simplex_dense"]
+        assert not any(v for k, v in LAUNCHES.items() if k != "simplex_dense")
         assert front.points.tolist() == golden_points("G3AP05")
-        assert front.backend_stats["graphs"] == be.lp_kernel.graphs
+        st = front.backend_stats
+        assert "graphs" not in st
         assert be.lp_kernel.W.device.type == dev.type
-        assert (be.lp_kernel.graphs > 0) == (dev.type == "cuda")
-        counts[dev.type] = front.ip_count
+        if dev.type == "cuda":
+            assert k5 == st["kernel_launches"] == be.device_waves > 0
+        else:
+            assert k5 == st["kernel_launches"] == 0
+        counts[dev.type] = (front.ip_count, be.device_waves, be.lp_count,
+                            be.verify_fallbacks, st["lp_steps"])
     assert counts["cuda"] == counts["cpu"]
+
+
+@pytest.mark.cuda
+def test_xla_engine_g2ap05_front_keeps_the_cpu_counts(cuda_device):
+    """The fault K5 repairs: with PyTorch's CUDA addcmul, which rounds its
+    product, the XLA engine's float32 G2AP05 front at the smoke's widths
+    took 16 waves / 96 LPs / 0 re-solves on the card against 19 / 98 / 0 on
+    the CPU and in the reference.  On K5 the card gives the CPU's counts."""
+    from moip_aira_tpu_torch.api import solve_front
+    from moip_aira_tpu_torch.solver.wave import WaveLexBackend
+
+    p = read_problem(os.path.join(EX, "G2AP05.lp"))
+    got = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        be = WaveLexBackend(
+            p, device=dev, engine="xla", dtype="float32", batch_width=2048,
+            nodes_per_task=32,
+        )
+        front = solve_front(p, n_workers=2, backend=be, device=dev, dp="off")
+        assert front.points.tolist() == golden_points("G2AP05")
+        got[dev.type] = (be.device_waves, be.lp_count, be.verify_fallbacks)
+    assert got["cuda"] == got["cpu"] == (19, 98, 0)
+
+
+def dense_case(name, lanes_n, dtype, seed=1):
+    """``lanes_n`` LP lanes of ``name`` for the dense simplex on the CPU, as
+    tests/test_torch_lex.py builds them: one stage objective a lane, the
+    objective rows bounded at a golden point moved by -1..1, a few
+    variables fixed; and the system [A; C | -I]."""
+    rng = np.random.default_rng(seed)
+    p = read_problem(os.path.join(EX, f"{name}.lp"))
+    gold = np.array(golden_points(name), dtype=np.float64)
+    n, m, k = p.n, p.m_total, p.objcnt
+    c, lo, hi = (np.zeros((lanes_n, n + m)) for _ in range(3))
+    for b in range(lanes_n):
+        c[b, :n] = (1.0 if p.objsen is Sense.MIN else -1.0) * p.C[b % k]
+        g = gold[rng.integers(len(gold))] + rng.integers(-1, 2, size=k)
+        free = np.full(k, np.inf)
+        olo, ohi = (-free, g) if p.objsen is Sense.MIN else (g, free)
+        lo[b] = np.concatenate([p.lb, p.row_lb, olo])
+        hi[b] = np.concatenate([p.ub, p.row_ub, ohi])
+        for v in rng.choice(n, size=int(rng.integers(0, 4)), replace=False):
+            fix = float(rng.integers(0, 2))
+            if rng.random() < 0.5:
+                hi[b, v] = min(hi[b, v], fix)
+            else:
+                lo[b, v] = max(lo[b, v], fix)
+    W = np.hstack([np.vstack([p.A, p.C]), -np.eye(m)])
+    return W, [torch.as_tensor(a, dtype=dtype) for a in (c, lo, hi)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize(
+    "name,lanes_n",
+    # the smoke's shapes (2AP40 on 32 of its 256 lanes: the plain loop on
+    # the CPU takes minutes at 256); 2AP40's tableau sits in global memory
+    [("G3KP10", 64), ("KP2D50", 64), ("G2AP05", 64), ("2AP20", 32), ("2AP40", 32)],
+)
+def test_dense_loop_kernel_matches_plain_bit_for_bit(cuda_device, name, lanes_n, dtype):
+    """K5 on the card against DenseLPSolver on the CPU, on the same lanes
+    (a third of them inactive): status, objective, x, basis, at-upper flags
+    and iterations equal bit for bit on every lane, in one launch, and the
+    step count is the plain loop's."""
+    from moip_aira_tpu_torch.solver.cuda_dense import dense_loop_plan, device_smem_cap
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
+    from moip_aira_tpu_torch.solver.simplex_dense import DenseLPSolver
+    from moip_aira_tpu_torch.solver.xla_lp import F32_TOLERANCES
+
+    W, args = dense_case(name, lanes_n, dtype)
+    active = torch.ones(lanes_n, dtype=torch.bool)
+    active[2::3] = False
+    tol = F32_TOLERANCES if dtype == torch.float32 else {}
+    plain = DenseLPSolver(torch.as_tensor(W, dtype=dtype), 2000, **tol)
+    want = plain(*args, active=active)
+    card = DenseLPSolver(torch.as_tensor(W, dtype=dtype, device=cuda_device), 2000, **tol)
+    k5 = LAUNCHES["simplex_dense"]
+    got = card(*(a.to(cuda_device) for a in args), active=active.to(cuda_device))
+    torch.cuda.synchronize()
+    for f in want._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert card.launches == LAUNCHES["simplex_dense"] - k5 == 1
+    assert card.steps == plain.steps and card.syncs == 1
+    plan = dense_loop_plan(*W.shape, dtype, device_smem_cap(0))
+    assert plan.t_smem == (name != "2AP40")
+
+
+@pytest.mark.cuda
+def test_dense_loop_kernel_refuses_before_launching(cuda_device):
+    """No fallback: a CUDA lane of the wrong dtype, shape or device raises,
+    and nothing is launched."""
+    from moip_aira_tpu_torch.solver.simplex_dense import DenseLPSolver
+
+    W, args = dense_case("G2AP05", 4, torch.float64)
+    solver = DenseLPSolver(torch.as_tensor(W, device=cuda_device), 2000)
+    c, lo, hi = (a.to(cuda_device) for a in args)
+    with pytest.raises(TypeError):
+        solver(c.float(), lo, hi)
+    with pytest.raises(ValueError):
+        solver(c[:, 1:].contiguous(), lo, hi)
+    with pytest.raises(ValueError):
+        solver(c.cpu(), lo, hi)
+    assert solver.launches == 0

@@ -34,7 +34,7 @@ from moip_aira_tpu_torch.sense import Sense
 from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
 from moip_aira_tpu_torch.solver.simplex_dense import xla_dot, xla_sum
 from moip_aira_tpu_torch.solver.wave import WaveLexBackend
-from moip_aira_tpu_torch.solver.xla_lp import F32_TOLERANCES, XlaLPBatch, bucket
+from moip_aira_tpu_torch.solver.xla_lp import F32_TOLERANCES, XlaLPBatch
 from test_differential import brute_force_front, random_problem
 from test_torch_lex import lp_boxes, problems
 from test_torch_wave import GRIDS, outcomes
@@ -98,24 +98,6 @@ def test_xla_sums_follow_xla(L):
     assert np.array_equal(xla_dot(torch.from_numpy(x), torch.from_numpy(y), 1).numpy(), want)
 
 
-def test_bucketed_lanes_give_the_unbucketed_outputs():
-    """Padding a call to its bucket with the trivial LP (what a card does
-    for its graphs) changes no lane's outputs; the buckets are powers of
-    two up to ``max_lanes``."""
-    assert [bucket(b, 64) for b in (1, 2, 3, 5, 17, 33, 64, 65, 100)] == [
-        1, 2, 4, 8, 32, 64, 64, 65, 100]
-    _, p = problems("G2AP05")
-    W = np.hstack([np.vstack([p.A, p.C]), -np.eye(p.m_total)])
-    c, lo, hi = (torch.as_tensor(a, dtype=torch.float32) for a in lp_boxes(p, 21, seed=2))
-    plain = XlaLPBatch(W, "cpu")
-    padded = XlaLPBatch(W, "cpu", max_lanes=64)
-    padded.bucketed = True
-    a, b = plain(c, lo, hi), padded(c, lo, hi)
-    for key in a._fields:
-        assert torch.equal(getattr(a, key), getattr(b, key)), key
-    assert plain.steps == padded.steps > 0 and plain.launches == padded.launches == 0
-
-
 # -- (b) the wave against the reference's XLA engine --------------------------
 
 
@@ -175,7 +157,7 @@ def test_engine_choices_and_stats():
     assert st["kernel"] == "xla" and st["kernel_launches"] == 0 and LAUNCHES == launches0
     assert st["lp_steps"] == be.lp_kernel.steps > 0
     assert st["host_syncs"] == be.lp_kernel.syncs >= st["lp_steps"]
-    assert st["graphs"] == 0  # CUDA graphs only on a card
+    assert "graphs" not in st  # the engine captures no CUDA graph
     assert backend_stats(be)["device_lanes"] == {"cpu": be.lp_count}
 
 

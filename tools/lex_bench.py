@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Time the port's lex backend (``backend="jax"``: solver/lex_torch.py on
-the dense simplex of solver/simplex_dense.py) on the card.
+the dense simplex of solver/simplex_dense.py, K5 on the card) on the card.
 
 For each front (G2AP05 on the bound sweep, G3AP05 and G3KP10 on the AIRA
 scheduler, ``n_workers=2``) it prints one JSON line with the seconds to the
 front, IPs, rounds, the lex counters (batches, lanes, fallbacks, B&B steps,
-LP steps, host syncs) and microseconds a step, then the same front on the
-wave (K1) for comparison.  ``--batch`` adds one call of the lex kernel on
-the smoke's batch (``chip_smoke.LEX_BATCH``: 2AP20's 32 lanes, the initial
-rhs and golden points under both orderings),
-timed on the card and, with ``--cpu``, on the CPU.  ``--eager`` launches
-each LP step's kernels one by one instead of as the solver's CUDA graph.
+LP steps, host syncs), K5's launches and microseconds an LP step, then the
+same front on the wave (K1) for comparison.  ``--batch`` adds one call of
+the lex kernel on the smoke's batch (``chip_smoke.LEX_BATCH``: 2AP20's 32
+lanes, the initial rhs and golden points under both orderings), timed on
+the card and, with ``--cpu``, on the CPU.  ``--cpu-fronts`` runs the fronts
+on the CPU alone (K5's plain version) and prints the same counters, the
+B&B and LP steps the smoke holds the card to (``chip_smoke.LEX_FRONTS``);
+it needs no card.
 
     python3 tools/lex_bench.py [--fronts G2AP05,G3AP05,G3KP10] [--batch] [--cpu]
+    python3 tools/lex_bench.py --cpu-fronts
 """
 
 from __future__ import annotations
@@ -34,8 +37,8 @@ def main() -> int:
     ap.add_argument("--batch", action="store_true")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--no-wave", action="store_true")
-    ap.add_argument("--eager", action="store_true",
-                    help="launch a step's kernels one by one (no CUDA graph)")
+    ap.add_argument("--cpu-fronts", action="store_true",
+                    help="the fronts on the CPU alone, no card")
     args = ap.parse_args()
 
     import numpy as np
@@ -46,31 +49,29 @@ def main() -> int:
     from moip_aira_tpu_torch.io import read_problem
     from moip_aira_tpu_torch.solver.lex_torch import TorchLexBackend, make_lex_kernel
 
-    if not torch.cuda.is_available():
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    dev = "cpu" if args.cpu_fronts else "cuda"
+    if dev == "cuda" and not torch.cuda.is_available():
         raise SystemExit("lex_bench: no card (torch.cuda.is_available() is False)")
-    if args.eager:
-        from moip_aira_tpu_torch.solver.simplex_dense import DenseLPSolver
-
-        def eager(self, c, lo, hi, active):
-            S = self._start(c, lo, hi, active)
-            return S, lambda: self._step(S)
-
-        DenseLPSolver._graphed = eager
-    mode = "eager" if args.eager else "graph"
-    card = smoke.card()
+    card = "cpu" if dev == "cpu" else smoke.card()
     print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
-    if not args.no_wave:
+    if dev == "cuda":
         from moip_aira_tpu_torch.kernels.build import load
 
-        load("dense_simplex")  # K1 built before the wave is timed
+        load("simplex_dense")  # K5 built before the fronts are timed
+        if not args.no_wave:
+            load("dense_simplex")  # and K1 before the wave is
 
     for name in [n for n in args.fronts.split(",") if n]:
         p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
-        be = TorchLexBackend(p, device="cuda")
-        torch.cuda.synchronize()
+        be = TorchLexBackend(p, device=dev)
+        sync()
         t0 = time.perf_counter()
-        f = solve_front(p, n_workers=2, backend=be, device="cuda", dp="off")
-        torch.cuda.synchronize()
+        f = solve_front(p, n_workers=2, backend=be, device=dev, dp="off")
+        sync()
         sec = time.perf_counter() - t0
         row = {
             "front": name, "backend": "jax", "seconds": sec,
@@ -79,11 +80,12 @@ def main() -> int:
             **{k: f.backend_stats[k] for k in (
                 "device_batches", "lanes", "fallback_count",
                 "bnb_steps", "lp_steps", "host_syncs")},
+            "k5_launches": be.kernel.lp.launches if dev == "cuda" else 0,
             "us_per_lp_step": sec / max(1, be.lp_steps) * 1e6,
-            "mode": mode, "card": card,
+            "device": dev, "torch": torch.__version__, "card": card,
         }
         print(json.dumps(row), flush=True)
-        if args.no_wave:
+        if args.no_wave or dev == "cpu":
             continue
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -98,7 +100,7 @@ def main() -> int:
             "lp_count": f.backend_stats["lp_count"], "card": card,
         }), flush=True)
 
-    if args.batch:
+    if args.batch and dev == "cuda":
         name, lanes = smoke.LEX_BATCH
         p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
         rhs, perm = smoke.lex_batch(p, lanes)
@@ -116,9 +118,9 @@ def main() -> int:
                 "batch": name, "device": dev, "lanes": len(rhs), "seconds": sec,
                 "status": np.bincount(out[0], minlength=4).tolist(),
                 "bnb_steps": kern.bnb_steps, "lp_steps": kern.lp_steps,
-                "host_syncs": kern.host_syncs,
+                "host_syncs": kern.host_syncs, "k5_launches": kern.lp.launches,
                 "us_per_lp_step": sec / max(1, kern.lp_steps) * 1e6,
-                "mode": mode, "card": card,
+                "card": card,
             }), flush=True)
         if "cpu" in outs:
             same = all(np.array_equal(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
