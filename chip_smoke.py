@@ -97,13 +97,17 @@ backend and the wave's XLA engine — and fails unless every phase passes:
               multiply-add) rounds once, else the phase fails; then the
               same numpy-made lanes on both, float32 (the XLA engine's
               tolerances) and float64, at G3KP10, KP2D50 and G2AP05 (64
-              lanes), 2AP20 (32) and 2AP40 (256, the tableau in global
-              memory), and float64 at the lex backend's 2AP20 batch (its
-              root LPs): status, objective, x, basis, at-upper flags and
-              iterations equal bit for bit on every lane; K5's plan, ms
-              (CUDA events, median of 5), the plain version's ms (one run),
-              the bound (from the plain run's steps and pivots) and us a
-              step;
+              lanes), 2AP20 (32), 2AP40 (256) and 2AP60 (8: its tableau
+              slice fits no block of a cluster of 8), and float64 at the lex
+              backend's 2AP20 batch (its root LPs), each in every plan that
+              fits (a warp a lane at P = 1, 2, 4 and 8 lanes a block, a
+              block, a cluster of each size C whose slices fit, a cluster
+              of each size with its slices in global memory) beside the
+              one K5's plan picks: status, objective, x, basis, at-upper
+              flags and iterations equal bit for bit on every lane; each
+              row with its shape, C, P, threads and layout, ms (CUDA
+              events, median of 5), the plain version's ms (one run), the
+              bound (from the plain run's steps and pivots) and us a step;
 16. lex:      the lex backend (backend="jax", solver/lex_torch.py: its B&B
               loop plain PyTorch in f64, its LPs K5, one launch a B&B step)
               on the card: G2AP05 (the sweep), G3AP05 and G3KP10 with
@@ -259,9 +263,11 @@ XLA_CPU_COUNTS = {
     ("G3AP05", "float64"): (81, 269, 0, 2440),
 }
 #: K5 in phase dense-loop: (instance, lanes) in float32 and float64, the
-#: XLA engine's shapes (2AP40's tableau in global memory), then the lex
-#: backend's 2AP20 batch (LEX_BATCH) in float64
-DENSE_LOOP_SHAPES = (("G3KP10", 64), ("KP2D50", 64), ("G2AP05", 64), ("2AP20", 32), ("2AP40", 256))
+#: XLA engine's shapes (2AP40's tableau split over a cluster, 2AP60's over
+#: a cluster in global memory), then the lex backend's 2AP20 batch
+#: (LEX_BATCH) in float64
+DENSE_LOOP_SHAPES = (("G3KP10", 64), ("KP2D50", 64), ("G2AP05", 64), ("2AP20", 32),
+                     ("2AP40", 256), ("2AP60", 8))
 #: the shapes and lengths of the CPU addcmul check (the plain version's
 #: fused multiply-adds)
 FMA_CHECK_LENGTHS = (14, 37, 442, 1682)
@@ -1638,15 +1644,19 @@ def phase_dense_loop(seed):
     numpy-made lanes: first that the CPU's addcmul is fused (else the plain
     version is not what K5 computes), then float32 (the XLA engine's
     tolerances) and float64 at DENSE_LOOP_SHAPES, and float64 at the lex
-    backend's 2AP20 batch; every output of every lane equal bit for bit.
-    Each row: K5's plan, ms (CUDA events, median of 5), the plain
-    version's seconds (one run), the bound, pivots and us a step."""
+    backend's 2AP20 batch, each in every plan that fits (a warp a lane at
+    P = 1, 2, 4 and 8, a block, each cluster size, with the tableau in
+    shared and in global memory; ``cuda_dense.loop_plans``)
+    as well as the one K5's plan picks; every output of every lane equal
+    bit for bit.  Each row: the plan (shape, C, P, threads, layout, whether
+    it is the pick), ms (CUDA events, median of 5), the plain version's ms
+    (one run), the bound, pivots and us a step."""
     import numpy as np
     import torch
 
     from moip_aira_tpu_torch.io import read_problem
     from moip_aira_tpu_torch.solver.cuda_dense import (
-        dense_loop_plan, device_smem_cap, launch_dense_loop,
+        launch_dense_loop, loop_plan, loop_plans, max_clusters,
     )
     from moip_aira_tpu_torch.solver.simplex_dense import DenseLPSolver
     from moip_aira_tpu_torch.solver.xla_lp import F32_TOLERANCES
@@ -1680,40 +1690,47 @@ def phase_dense_loop(seed):
         plain_s = time.perf_counter() - t0
         W_dev = torch.as_tensor(W, dtype=dtype, device=dev)
         args_dev = [a.to(dev) for a in args]
-
-        def k5():
-            return launch_dense_loop(
-                W_dev, *args_dev, None, plain.max_iters, plain.feas_tol, plain.cost_tol,
-                plain.pivot_tol, plain.progress_tol, plain.stall_limit,
-            )
-
-        got = k5()
-        torch.cuda.synchronize()
-        got_cpu = type(got)(*(t.cpu() for t in got))
-        label = f"dense-loop {name} ({kind}, {str(dtype)[6:]})"
-        assert_bitwise(label, got_cpu, want)
-        ms = cuda_ms(k5)
         iters = want.iters.numpy()
         # the pivots of the plain run, whose every output K5 equals
         pivots = plain.pivots.numpy()
         dsize = 8 if dtype == torch.float64 else 4
         bound_ms, bound_by = dense_bound(m, n, iters, pivots, dsize)
-        plan = dense_loop_plan(m, n + m, dtype, device_smem_cap(0))
-        err = max(float((got_cpu.obj - want.obj).abs().max()),
-                  float((got_cpu.x - want.x).abs().max()))
-        row = {
-            "phase": "dense-loop", "instance": name, "lanes": len(iters), "kind": kind,
-            "dtype": str(dtype)[6:], "m": m, "nc": n + m, "threads": plan.threads,
-            "layout": plan.layout, "smem_bytes": plan.smem_bytes,
-            "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_iters": int(iters.max()), "mean_iters": float(iters.mean()),
-            "steps": int(iters.sum()), "pivots": int(pivots.sum()),
-            "us_per_step": 1e3 * ms / max(1, int(iters.max())),
-            "status_counts": np.bincount(want.status.numpy(), minlength=4).tolist(),
-            "max_abs_err": err, "bitwise_equal": True, "card": smi,
-        }
-        emit(row)
-        rows.append(row)
+        chosen = loop_plan(W_dev, len(iters))
+        plans = loop_plans(W_dev)
+        if chosen not in plans:
+            raise AssertionError(f"dense-loop {name}: the pick {chosen} is not among {plans}")
+        for plan in plans:
+
+            def k5(plan=plan):
+                return launch_dense_loop(
+                    W_dev, *args_dev, None, plain.max_iters, plain.feas_tol, plain.cost_tol,
+                    plain.pivot_tol, plain.progress_tol, plain.stall_limit, plan=plan,
+                )
+
+            got = k5()
+            torch.cuda.synchronize()
+            got_cpu = type(got)(*(t.cpu() for t in got))
+            label = (f"dense-loop {name} ({kind}, {str(dtype)[6:]}, {plan.shape} "
+                     f"C={plan.C} P={plan.P})")
+            assert_bitwise(label, got_cpu, want)
+            ms = cuda_ms(k5)
+            err = max(float((got_cpu.obj - want.obj).abs().max()),
+                      float((got_cpu.x - want.x).abs().max()))
+            row = {
+                "phase": "dense-loop", "instance": name, "lanes": len(iters), "kind": kind,
+                "dtype": str(dtype)[6:], "m": m, "nc": n + m, "shape": plan.shape,
+                "C": plan.C, "P": plan.P, "threads": plan.threads, "layout": plan.layout,
+                "smem_bytes": plan.smem_bytes, "held": max_clusters(0, plan),
+                "chosen": plan == chosen,
+                "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_iters": int(iters.max()), "mean_iters": float(iters.mean()),
+                "steps": int(iters.sum()), "pivots": int(pivots.sum()),
+                "us_per_step": 1e3 * ms / max(1, int(iters.max())),
+                "status_counts": np.bincount(want.status.numpy(), minlength=4).tolist(),
+                "max_abs_err": err, "bitwise_equal": True, "card": smi,
+            }
+            emit(row)
+            rows.append(row)
     return rows
 
 
@@ -2340,9 +2357,10 @@ def main() -> int:
         }
 
     def k5_entry(rows, launches):
-        # one launch on the lex backend's 2AP20 batch (its root LPs, f64);
-        # no single PyTorch call computes a batched simplex loop
-        row = next(r for r in rows if r["kind"].startswith("lex batch"))
+        # one launch on the lex backend's 2AP20 batch (its root LPs, f64),
+        # in the plan K5 picks; no single PyTorch call computes a batched
+        # simplex loop
+        row = next(r for r in rows if r["kind"].startswith("lex batch") and r["chosen"])
         return {
             "name": "simplex_dense",
             "route": "cuda",
@@ -2356,6 +2374,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,
+            # the plans K5 picked at the dense-loop rows, and this row's
+            "shapes": sorted({f"{r['shape']} C={r['C']} P={r['P']}" for r in rows if r["chosen"]}),
+            "plan": f"{row['shape']} C={row['C']} P={row['P']}",
         }
 
     emit({

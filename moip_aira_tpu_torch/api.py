@@ -50,11 +50,13 @@ class FrontResult:
     #: its mesh, and per device (keyed ``str(device)``) the lanes,
     #: ``device_lanes``, and kernel launches, ``device_launches`` (the
     #: wave's XLA engine, kernel "xla", counts K5's launches and adds its
-    #: solver's ``lp_steps`` and ``host_syncs``); for
+    #: solver's ``lp_steps`` and ``host_syncs``, and K5's launches by plan
+    #: as [shape, C, P, launches] rows, ``k5_plans``); for
     #: the knapsack front DP, backend "kp_front", kernel "kp_dp" (K4) with
     #: its launches, the expanded items, the table cells and the engine;
     #: for the lex backend ("jax"), its batches, lanes, fallbacks and the
-    #: steps of its B&B and LP loops with the host syncs they took; under a
+    #: steps of its B&B and LP loops with the host syncs they took, and
+    #: ``k5_plans``; under a
     #: mesh also "mesh": its mode, shape and the mesh scheduler's
     #: exchanged_boxes, carried_boxes and severed
     backend_stats: Optional[dict] = None
@@ -68,6 +70,15 @@ class FrontResult:
         return int(self.points.shape[0])
 
 
+def k5_plans(counters) -> list:
+    """K5's launches summed over ``counters`` (each by (shape, C, P)), as
+    sorted [shape, C, P, launches] rows."""
+    total = Counter()
+    for counter in counters:
+        total.update(counter)
+    return sorted([shape, C, P, k] for (shape, C, P), k in total.items())
+
+
 def backend_stats(be) -> dict:
     """The counters a run reports for backend ``be``."""
     stats = {"backend": getattr(be, "name", type(be).__name__)}
@@ -78,6 +89,8 @@ def backend_stats(be) -> dict:
     ):
         if hasattr(be, key):
             stats[key] = int(getattr(be, key))
+    if hasattr(be, "plan_launches"):  # the lex backend: K5's plans
+        stats["k5_plans"] = k5_plans([be.plan_launches])
     which = "lp_kernel"
     if getattr(be, "fragments", False):
         which = "frag_kernel"
@@ -107,6 +120,8 @@ def backend_stats(be) -> dict:
         if hasattr(first, "steps"):  # the XLA engine: its loop's counters
             stats["lp_steps"] = sum(int(k.steps) for k in kernels.values())
             stats["host_syncs"] = sum(int(k.syncs) for k in kernels.values())
+        if hasattr(first, "plan_launches"):  # the XLA engine: K5's plans
+            stats["k5_plans"] = k5_plans(k.plan_launches for k in kernels.values())
         if hasattr(be, "device_lanes"):
             # lanes and launches per device, keyed str(device)
             stats["device_lanes"] = dict(be.device_lanes)

@@ -1,6 +1,7 @@
 // K5 on Hopper: the whole loop of the dense bounded-variable simplex of
 // moip_aira_tpu_torch/solver/simplex_dense.py (DenseLPSolver: start, steps
-// and finish) in one launch, one block a lane, in float32 or float64.
+// and finish) in one launch, each lane on a warp, a block or a thread-block
+// cluster as the launch plan says, in float32 or float64.
 //
 // This kernel replaces no Pallas kernel: the JAX package runs this solver
 // (moip_aira_tpu/solver/simplex_jax.py) under XLA, for the lex backend
@@ -36,33 +37,118 @@
 //
 // What bounds it on this card: each step reads the tableau twice (pricing,
 // the alpha column) and rewrites it once, but at the lanes the fronts send
-// (tens) a step is a chain of dependent latencies: pricing is one column's
-// chain of m fused multiply-adds a thread, the infeasibility and objective
-// sums, the row pick and the step itself are serial in the plain version's
-// order, and between them sit about nine block barriers.  What the design
-// does about it: everything of a lane stays in one block for the whole
-// loop, so a step costs no launch and no host read (the plain version's
-// PyTorch loop takes 140-300 small kernels and one host read a step); the
-// tableau stays in shared memory when it fits (2AP20 in float64, 148.5 KB)
-// and in a per-lane global scratch otherwise (2AP40); the three serial
-// row sums run side by side on three warps; the first level of a long
-// column sum runs a window a thread.
+// (a few to a few hundred) a step is a chain of dependent latencies: a
+// column's pricing chain of m multiply-adds, the arg-max over the columns,
+// the ratio test and row pick over the rows, and the three serial row sums
+// of the next step, with barriers between them.  What the design does about
+// it (solver/cuda_dense.py::dense_loop_plan picks the shape per launch):
+//   packed   a warp a lane, P lanes a block, for m <= 32 rows and nc <= 128
+//            columns: the columns strided over the warp's threads, every
+//            barrier a __syncwarp and every reduction a shuffle, so a lane
+//            that stops leaves its block's other lanes running;
+//   block    a block a lane with the whole tableau in shared memory;
+//   cluster  a lane on a cluster of C blocks: block r keeps the columns of
+//            the windows [r wpb, r wpb + wpb) of the padded nc-long sums
+//            (wpb = ceil(windows(nc) / C)), so each window of the
+//            objective's column sums lies in one block, with the slices of
+//            every nc-long vector; each block publishes its pricing winner,
+//            that column and its windows' sums into every block's shared
+//            memory (distributed shared memory) before the one cluster
+//            barrier of the step, two buffers alternating by parity, and
+//            every block then takes the same step on identical row state;
+//   global   the cluster shape with each block's tableau slice in a global
+//            scratch (the rest in shared memory as on a cluster), the last
+//            resort for an LP whose slice fits no block of a cluster of 8
+//            (2AP50 and larger in float64, 2AP60 and larger in float32).
+// In every shape a step is: pricing of the block's columns, which first
+// applies the last pivot's rank-1 update to each column (the same values as
+// the update and then the pricing), a thread a column, with the windows of
+// the objective's nonbasic part on the threads past the columns; the block's
+// arg-max and one barrier (and the cluster's exchange); then warp 0 alone
+// runs everything over the rows -- the ratio test, the row pick, the
+// outcome, the basic values' step, and the next step's row terms, its three
+// row sums side by side (a window a thread) and its phase test -- and one
+// barrier ends the step.  A step has two barriers on a block, a cluster
+// barrier more on a cluster, and none past __syncwarp in the packed shape.
+//
+// Built with -DK5_CLOCKS (tools/k5_bench.py only), thread 0 of each lane
+// also counts the SM cycles of each part of its run (K5Part); the
+// production build is unchanged.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libsimplex_dense.so simplex_dense.cu
 
+#include <cooperative_groups.h>
+
 #include <cstddef>
 
 #include "simplex_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int XLA_WINDOW = 32;
-constexpr int K5_MIN_THREADS = 128;  // warps 0-2 run the serial row sums
-constexpr int K5_MAX_THREADS = 512;
-// the longest sum xla_sum<2> takes: windows of windows of windows
+constexpr int K5_MAX_THREADS = 256;  // a block of any shape
+constexpr int K5_MAX_WARPS = K5_MAX_THREADS / 32;
+constexpr int K5_MAX_CLUSTER = 8;    // the portable cluster size
+constexpr int K5_PACK_ROWS = 32;     // packed: a row for each warp lane
+constexpr int K5_PACK_COLS = 128;    // packed: four columns for each
+constexpr int K5_MAX_PACK = 8;       // packed: lanes (warps) a block
+// the longest row sum that windows and one chain take
+constexpr int K5_MAX_ROWS = XLA_WINDOW * XLA_WINDOW;
+// the longest column sum that windows of windows and one chain take
 constexpr int K5_MAX_TERMS = XLA_WINDOW * XLA_WINDOW * XLA_WINDOW;
+
+constexpr int SHAPE_PACKED = 0;
+constexpr int SHAPE_BLOCK = 1;
+constexpr int SHAPE_CLUSTER = 2;
+constexpr int SHAPE_GLOBAL = 3;  // a cluster, the tableau in global memory
+constexpr int K5_N_SHAPES = 4;
+
+// a published winner's values, and the step's scalars for every thread
+constexpr int MAIL_T = 7;  // v, d, c, lo, hi, span, z of the column
+constexpr int MAIL_I = 3;  // column, any eligible, at upper
+constexpr int HEAD_I = 8;  // p1n, bland, pend, pend_r, run
+
+// the parts of a lane's run that a -DK5_CLOCKS build counts: the start;
+// then per step the row terms and row sums of the next step, its phase
+// test, pricing (with the last pivot's rank-1 update and the arg-max), the
+// objective's nonbasic windows, the ratio test, the row pick, the outcome,
+// the basic values' step, the rank-1 update (fused into pricing here, so
+// 0), and the time spent in barriers and the cluster's exchange
+constexpr int K5_N_PARTS = 11;
+enum K5Part {
+  P_START, P_ROW_SUMS, P_PHASE, P_PRICING, P_CZV, P_RATIO, P_ROW_PICK,
+  P_OUTCOME, P_XB_STEP, P_RANK1, P_BARRIERS
+};
+#ifdef K5_CLOCKS
+__device__ unsigned long long* k5_clocks;
+#define K5_CLOCK_DECL \
+  unsigned long long clk_[K5_N_PARTS] = {}; long long clk_t_ = clock64();
+#define K5_TICK(part)                                  \
+  do {                                                 \
+    const long long t_ = clock64();                    \
+    clk_[part] += (unsigned long long)(t_ - clk_t_);   \
+    clk_t_ = t_;                                       \
+  } while (0)
+#define K5_CLOCK_STORE(on, lane)                                     \
+  do {                                                               \
+    if ((on) && k5_clocks != nullptr)                                \
+      for (int p_ = 0; p_ < K5_N_PARTS; ++p_)                        \
+        k5_clocks[(size_t)(lane) * K5_N_PARTS + p_] = clk_[p_];      \
+  } while (0)
+#else
+#define K5_CLOCK_DECL
+#define K5_TICK(part) \
+  do {                \
+  } while (0)
+#define K5_CLOCK_STORE(on, lane) \
+  do {                           \
+  } while (0)
+#endif
 
 template <class T>
 struct Op;
@@ -89,26 +175,7 @@ struct Op<double> {
   }
 };
 
-// x(0) + x(1) + ... + x(L - 1), term by term from x(0)
-template <class T, class F>
-__device__ T chain_sum(const F& x, int L) {
-  T acc = x(0);
-  for (int i = 1; i < L; ++i) acc = Op<T>::add(acc, x(i));
-  return acc;
-}
-
-// window w of a windowed sum over L terms padded `lo` zeros low: padded
-// term k is x(k - lo) inside [0, L) and +0 outside
-template <class T, class F>
-__device__ T window_sum(const F& x, int L, int lo, int w) {
-  T acc = T(0);
-  for (int k = 0; k < XLA_WINDOW; ++k) {
-    const int i = w * XLA_WINDOW + k - lo;
-    const T v = (i >= 0 && i < L) ? x(i) : T(0);
-    acc = k == 0 ? v : Op<T>::add(acc, v);
-  }
-  return acc;
-}
+// ---- the windowed order of a sum ---------------------------------------------
 
 __host__ __device__ inline int windows(int L) {
   return (L + XLA_WINDOW - 1) / XLA_WINDOW;
@@ -118,44 +185,196 @@ __host__ __device__ inline int pad_low(int L) {
   return (windows(L) * XLA_WINDOW - L) / 2;
 }
 
-// xla_sum of x(0..L), L <= 32^(D+1), on one thread
-template <int D, class T, class F>
-__device__ T xla_sum(const F& x, int L) {
-  if constexpr (D == 0) {
-    return chain_sum<T>(x, L);
-  } else {
-    if (L <= XLA_WINDOW) return chain_sum<T>(x, L);
-    const int lo = pad_low(L);
-    auto win = [&](int w) { return window_sum<T>(x, L, lo, w); };
-    return xla_sum<D - 1, T>(win, windows(L));
-  }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// The first level of xla_sum over L terms: one item, the whole chain, when
+// L <= 32, else a window each.
+__host__ __device__ inline int items(int L) {
+  return L <= XLA_WINDOW ? 1 : windows(L);
 }
 
-// xla_dot of a(i) b(i) over i < L, on one thread
-template <class T, class A, class B>
-__device__ T xla_dot(const A& a, const B& b, int L) {
-  if (L > XLA_WINDOW)
-    return xla_sum<2, T>([&](int i) { return Op<T>::mul(a(i), b(i)); }, L);
-  T acc = Op<T>::mul(a(0), b(0));
-  for (int i = 1; i < L; ++i) acc = Op<T>::fma(a(i), b(i), acc);
+// The sums read arrays (shared memory) term by term in the plain version's
+// order, the terms four or eight at a time ahead of their adds, so a chain
+// waits on its adds and not on each term's load.  They take a pointer, not
+// a term's expression, so that one copy of each serves every caller and the
+// step's code stays small.
+
+// x[0] + x[1] + ... + x[L - 1], term by term from x[0] (L >= 1)
+template <class T>
+__device__ T chain_arr(const T* x, int L) {
+  T acc = x[0];
+  int i = 1;
+#pragma unroll 2
+  for (; i + 4 <= L; i += 4) {
+    const T v0 = x[i], v1 = x[i + 1], v2 = x[i + 2], v3 = x[i + 3];
+    acc = Op<T>::add(acc, v0);
+    acc = Op<T>::add(acc, v1);
+    acc = Op<T>::add(acc, v2);
+    acc = Op<T>::add(acc, v3);
+  }
+#pragma unroll 1
+  for (; i < L; ++i) acc = Op<T>::add(acc, x[i]);
   return acc;
 }
 
-// xla_sum of x(0..L) by the whole block into *out: the first level's
-// windows one a thread, the windows' sums on thread 0.  Ends with a barrier.
-template <class T, class F>
-__device__ void block_xla_sum(const F& x, int L, T* wsum, T* out) {
-  if (L <= XLA_WINDOW) {
-    if (threadIdx.x == 0) *out = chain_sum<T>(x, L);
-  } else {
-    const int nw = windows(L), lo = pad_low(L);
-    for (int w = threadIdx.x; w < nw; w += blockDim.x)
-      wsum[w] = window_sum<T>(x, L, lo, w);
-    __syncthreads();
-    if (threadIdx.x == 0)
-      *out = xla_sum<1, T>([&](int w) { return wsum[w]; }, nw);
+// the chain of xla_dot over at most 32 terms: the first product rounded,
+// then fused multiply-adds (L >= 1)
+template <class T>
+__device__ T fma_chain_arr(const T* a, const T* b, int L) {
+  T acc = Op<T>::mul(a[0], b[0]);
+  int i = 1;
+#pragma unroll 2
+  for (; i + 4 <= L; i += 4) {
+    const T u0 = a[i], u1 = a[i + 1], u2 = a[i + 2], u3 = a[i + 3];
+    const T v0 = b[i], v1 = b[i + 1], v2 = b[i + 2], v3 = b[i + 3];
+    acc = Op<T>::fma(u0, v0, acc);
+    acc = Op<T>::fma(u1, v1, acc);
+    acc = Op<T>::fma(u2, v2, acc);
+    acc = Op<T>::fma(u3, v3, acc);
   }
-  __syncthreads();
+#pragma unroll 1
+  for (; i < L; ++i) acc = Op<T>::fma(a[i], b[i], acc);
+  return acc;
+}
+
+// Window w of a windowed sum over L terms padded `lo` zeros low, its terms
+// term(i) for the i of [0, L) it covers, summed in order: padded term k is
+// term(32 w + k - lo) inside [0, L), +0 outside.  The padding is added as
+// it changes the sum: a window that starts in it starts from +0 (so a first
+// term of -0 gives +0, as +0 + -0 does), one that ends in it adds +0 once
+// (more +0s change nothing).
+template <class T, class F>
+__device__ __forceinline__ T window_terms(const F& term, int L, int lo, int w) {
+  const int i0 = w * XLA_WINDOW - lo;
+  const int e = imin(L, i0 + XLA_WINDOW);
+  int i = imax(0, i0);
+  T acc = T(0);
+  if (i0 >= 0) acc = term(i++);
+#pragma unroll 2
+  for (; i + 4 <= e; i += 4) {
+    const T v0 = term(i), v1 = term(i + 1), v2 = term(i + 2), v3 = term(i + 3);
+    acc = Op<T>::add(acc, v0);
+    acc = Op<T>::add(acc, v1);
+    acc = Op<T>::add(acc, v2);
+    acc = Op<T>::add(acc, v3);
+  }
+#pragma unroll 1
+  for (; i < e; ++i) acc = Op<T>::add(acc, term(i));
+  if (e < i0 + XLA_WINDOW) acc = Op<T>::add(acc, T(0));
+  return acc;
+}
+
+// window w of the windowed sum over the L-long axis of x, x[0] its index
+// `off` (padded `lo` zeros low)
+template <class T>
+__device__ T window_arr(const T* x, int L, int lo, int w, int off) {
+  return window_terms<T>([&](int i) { return x[i - off]; }, L, lo, w);
+}
+
+// item w of xla_sum over the L-long axis of x (the whole chain when
+// L <= 32)
+template <class T>
+__device__ T item_arr(const T* x, int L, int w, int off) {
+  if (L <= XLA_WINDOW) return chain_arr(x, L);
+  return window_arr(x, L, pad_low(L), w, off);
+}
+
+// xla_sum over L terms from its items(L) first-level items s[0..]: the
+// item itself, a chain of the windows' sums, or (L > 32^2) the windows of
+// the windows' sums, then their chain
+template <class T>
+__device__ T total_arr(const T* s, int L) {
+  if (L <= XLA_WINDOW) return s[0];
+  const int nw = windows(L);
+  if (nw <= XLA_WINDOW) return chain_arr(s, nw);
+  const int lo = pad_low(nw);
+  T acc = window_arr(s, nw, lo, 0, 0);
+#pragma unroll 1
+  for (int w = 1; w < windows(nw); ++w)
+    acc = Op<T>::add(acc, window_arr(s, nw, lo, w, 0));
+  return acc;
+}
+
+// Rows [i, i + 4) of a column that lies `pitch` apart, brought up to date
+// by the pending rank-1 update (PEND: row pr becomes rj, every other row
+// fma(-alpha[i], rj, T[i, j])) and written back, with their pricing costs.
+// Every load comes before every store, so the four rows' loads overlap
+// (a store may alias a later load, so a load after it waits).
+template <class T, bool PEND>
+__device__ __forceinline__ void rows4(T* col, int pitch, int i, int pr, T rj,
+                                      const T* alpha, const T* cBe, T (&t)[4],
+                                      T (&cb)[4]) {
+  T a[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    t[k] = col[(size_t)(i + k) * pitch];
+    cb[k] = cBe[i + k];
+    if (PEND) a[k] = alpha[i + k];
+  }
+  if (PEND) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) t[k] = i + k == pr ? rj : Op<T>::fma(-a[k], rj, t[k]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) col[(size_t)(i + k) * pitch] = t[k];
+  }
+}
+
+// Column j's pricing sum cBe . T[:, j] over the m rows of a column that
+// lies `pitch` apart, after the pending rank-1 update (PEND) of each of its
+// rows, each written back once.  m <= 32: the chain of fused multiply-adds;
+// longer: the rounded products in windows of 32 (window_terms' order), then
+// the chain of the windows' sums.  Four rows at a time (rows4).
+template <class T, bool PEND>
+__device__ __forceinline__ T col_dot(T* col, int pitch, int m, int pr, T rj,
+                                     const T* alpha, const T* cBe) {
+  auto row = [&](int i) -> T {
+    T t = col[(size_t)i * pitch];
+    if (PEND) {
+      t = i == pr ? rj : Op<T>::fma(-alpha[i], rj, t);
+      col[(size_t)i * pitch] = t;
+    }
+    return t;
+  };
+  T t[4], cb[4];
+  if (m <= XLA_WINDOW) {
+    T acc = Op<T>::mul(cBe[0], row(0));
+    int i = 1;
+#pragma unroll 1
+    for (; i + 4 <= m; i += 4) {
+      rows4<T, PEND>(col, pitch, i, pr, rj, alpha, cBe, t, cb);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc = Op<T>::fma(cb[k], t[k], acc);
+    }
+#pragma unroll 1
+    for (; i < m; ++i) acc = Op<T>::fma(cBe[i], row(i), acc);
+    return acc;
+  }
+  const int lo = pad_low(m), nw = windows(m);
+  T dsum = T(0);
+#pragma unroll 1
+  for (int w = 0; w < nw; ++w) {
+    // window_terms over the products cBe[i] T[i, j], four rows at a time
+    const int i0 = w * XLA_WINDOW - lo;
+    const int e = imin(m, i0 + XLA_WINDOW);
+    int i = imax(0, i0);
+    T acc = T(0);
+    if (i0 >= 0) {
+      acc = Op<T>::mul(cBe[i], row(i));
+      ++i;
+    }
+#pragma unroll 1
+    for (; i + 4 <= e; i += 4) {
+      rows4<T, PEND>(col, pitch, i, pr, rj, alpha, cBe, t, cb);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc = Op<T>::add(acc, Op<T>::mul(cb[k], t[k]));
+    }
+#pragma unroll 1
+    for (; i < e; ++i) acc = Op<T>::add(acc, Op<T>::mul(cBe[i], row(i)));
+    if (e < i0 + XLA_WINDOW) acc = Op<T>::add(acc, T(0));
+    dsum = w == 0 ? acc : Op<T>::add(dsum, acc);
+  }
+  return dsum;
 }
 
 // (a, ia) beats (b, ib): larger value, lower index among equals
@@ -164,11 +383,42 @@ __device__ __forceinline__ bool wins(T a, int ia, T b, int ib) {
   return a > b || (a == b && ia < ib);
 }
 
+// a column candidate: its score, reduced cost and index, and whether any
+// column seen is eligible
 template <class T>
-__device__ __forceinline__ void warp_argmax_t(T& v, int& i) {
+struct Cand {
+  T v, d;
+  int j, any;
+};
+
+template <class T>
+__device__ __forceinline__ void take(Cand<T>& a, T v, int j, T d, int any) {
+  if (wins(v, j, a.v, a.j)) {
+    a.v = v;
+    a.j = j;
+    a.d = d;
+  }
+  a.any |= any;
+}
+
+// the warp's best candidate in every lane (a butterfly: `wins` is a total
+// order, so every lane finds the same one)
+template <class T>
+__device__ __forceinline__ void warp_best(Cand<T>& a) {
   for (int off = 16; off > 0; off >>= 1) {
-    const T ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
+    const T v = __shfl_xor_sync(FULL, a.v, off);
+    const T d = __shfl_xor_sync(FULL, a.d, off);
+    const int j = __shfl_xor_sync(FULL, a.j, off);
+    const int any = __shfl_xor_sync(FULL, a.any, off);
+    take(a, v, j, d, any);
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void warp_argmax_all(T& v, int& i) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const T ov = __shfl_xor_sync(FULL, v, off);
+    const int oi = __shfl_xor_sync(FULL, i, off);
     if (wins(ov, oi, v, i)) {
       v = ov;
       i = oi;
@@ -176,387 +426,736 @@ __device__ __forceinline__ void warp_argmax_t(T& v, int& i) {
   }
 }
 
-// Where each array of a lane lives in the block's dynamic shared memory,
-// as byte offsets, each 16-byte aligned; `tab` (the tableau) only when it
-// sits there.  The wrapper's dense_loop_smem_bytes counts the same.
-struct Layout {
-  size_t tab, c, lo, hi, zlo, zup, span, col;
-  size_t xB, bl, bh, alpha, ratio, cB, cBb, t1, t2, wsum;
-  size_t basis, inb, atu, fre, below, above, total;
+// ---- the plan's geometry -------------------------------------------------------
+
+__host__ __device__ inline size_t seg(size_t bytes) {
+  return (bytes + 15) & ~static_cast<size_t>(15);
+}
+
+// A lane's columns split over C blocks by whole windows of the padded
+// nc-long sums: wpb windows a block, block r the columns [j0, j1) of the
+// windows [w0, w1); the tableau's row pitch (nc on one block).
+struct Slice {
+  int pitch, wpb, w0, w1, j0, j1;
 };
 
-__host__ __device__ inline Layout k5_layout(int m, int nc, int dsize,
-                                            bool t_smem) {
+__host__ __device__ inline Slice slice_of(int nc, int C, int r) {
+  Slice s{};
+  const int nw = items(nc);
+  s.wpb = (nw + C - 1) / C;
+  s.w0 = imin(nw, r * s.wpb);
+  s.w1 = imin(nw, s.w0 + s.wpb);
+  if (nc <= XLA_WINDOW) {
+    s.j0 = r == 0 ? 0 : nc;
+    s.j1 = nc;
+  } else {
+    const int lo = pad_low(nc);
+    s.j0 = imax(0, imin(nc, s.w0 * XLA_WINDOW - lo));
+    s.j1 = imax(0, imin(nc, s.w1 * XLA_WINDOW - lo));
+  }
+  s.pitch = (C == 1 || nc <= XLA_WINDOW) ? nc : s.wpb * XLA_WINDOW;
+  return s;
+}
+
+// Where each array of a lane lives in its shared memory (a block's, or a
+// warp's part of it in the packed shape), as byte offsets, each 16-byte
+// aligned.  The wrapper's dense_loop_smem_bytes counts the same.
+struct Layout {
+  size_t tab, c, lo, hi, zlo, zup, span, z, cz, fre, inb, atu;
+  size_t xB, bl, bh, cBb, cB1, alpha, ratio, t1, t2, prod, basis, below, above;
+  size_t rsum, czall, ccol, slot_t, slot_i, mail_t, mail_i, head_i, head_t;
+  size_t total;
+};
+
+__host__ __device__ inline Layout k5_layout(int shape, int m, int nc, int C,
+                                            int dsize) {
   Layout L{};
   size_t off = 0;
-  auto take = [&](size_t bytes) {
+  auto take_b = [&](size_t bytes) {
     const size_t at = off;
-    off = (off + bytes + 15) & ~static_cast<size_t>(15);
+    off += seg(bytes);
     return at;
   };
-  const size_t col = (size_t)nc * dsize, row = (size_t)m * dsize;
-  L.tab = take(t_smem ? (size_t)m * nc * dsize : 0);
-  L.c = take(col);
-  L.lo = take(col);
-  L.hi = take(col);
-  L.zlo = take(col);
-  L.zup = take(col);
-  L.span = take(col);
-  L.col = take(col);
-  L.xB = take(row);
-  L.bl = take(row);
-  L.bh = take(row);
-  L.alpha = take(row);
-  L.ratio = take(row);
-  L.cB = take(row);
-  L.cBb = take(row);
-  L.t1 = take(row);
-  L.t2 = take(row);
-  L.wsum = take((size_t)windows(nc) * dsize);
-  L.basis = take((size_t)m * sizeof(int));
-  L.inb = take(nc);
-  L.atu = take(nc);
-  L.fre = take(nc);
-  L.below = take(m);
-  L.above = take(m);
+  const int pitch = slice_of(nc, C, 0).pitch;
+  const size_t col = (size_t)pitch * dsize, row = (size_t)m * dsize;
+  const int warps = shape == SHAPE_PACKED ? 0 : K5_MAX_WARPS;
+  const bool cl = shape == SHAPE_CLUSTER || shape == SHAPE_GLOBAL;
+  const int mail = cl ? 2 * C : 0;
+  L.tab = take_b(shape == SHAPE_GLOBAL ? 0 : (size_t)m * col);
+  L.c = take_b(col);
+  L.lo = take_b(col);
+  L.hi = take_b(col);
+  L.zlo = take_b(col);
+  L.zup = take_b(col);
+  L.span = take_b(col);
+  L.z = take_b(col);
+  L.cz = take_b(col);
+  L.fre = take_b(pitch);
+  L.inb = take_b(pitch);
+  L.atu = take_b(pitch);
+  L.xB = take_b(row);
+  L.bl = take_b(row);
+  L.bh = take_b(row);
+  L.cBb = take_b(row);
+  L.cB1 = take_b(row);
+  L.alpha = take_b(row);
+  L.ratio = take_b(row);
+  L.t1 = take_b(row);
+  L.t2 = take_b(row);
+  L.prod = take_b(row);
+  L.basis = take_b((size_t)m * sizeof(int));
+  L.below = take_b(m);
+  L.above = take_b(m);
+  L.rsum = take_b((size_t)3 * items(m) * dsize);
+  L.czall = take_b((size_t)2 * items(nc) * dsize);
+  L.ccol = take_b(cl ? (size_t)2 * C * m * dsize : 0);
+  L.slot_t = take_b((size_t)2 * warps * dsize);
+  L.slot_i = take_b((size_t)2 * warps * sizeof(int));
+  L.mail_t = take_b((size_t)mail * MAIL_T * dsize);
+  L.mail_i = take_b((size_t)mail * MAIL_I * sizeof(int));
+  L.head_i = take_b(HEAD_I * sizeof(int));
+  L.head_t = take_b(2 * (size_t)dsize);
   L.total = off;
   return L;
 }
 
-template <class T>
-struct LaneScalars {
-  T infeas_lo, infeas_hi, cbx, czv, infeas, last, last_e, theta, newval, obj;
-  T rmin;
-  int q, r, status, it, stall, stall_e;
-  bool p1, p1n, any_elig, moves, do_pivot, run;
-  T red_v[MAX_WARPS];
-  int red_i[MAX_WARPS];
-};
+// a block's dynamic shared bytes under a plan: P lanes' parts in the packed
+// shape, else one lane's (its slice on a cluster)
+__host__ __device__ inline size_t k5_smem_bytes(int shape, int m, int nc, int C,
+                                                int P, int dsize) {
+  const size_t lane = k5_layout(shape, m, nc, C, dsize).total;
+  return shape == SHAPE_PACKED ? (size_t)P * lane : lane;
+}
 
-template <class T>
+// ---- the kernel ----------------------------------------------------------------
+
+template <int SHAPE>
+__device__ __forceinline__ void lane_sync() {
+  if constexpr (SHAPE == SHAPE_PACKED)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+template <int SHAPE>
+__device__ __forceinline__ int lane_sync_or(int v) {
+  if constexpr (SHAPE == SHAPE_PACKED)
+    return __any_sync(FULL, v);
+  else
+    return __syncthreads_or(v);
+}
+
+// One lane: on warp (threadIdx.x / 32) of block blockIdx.x, P lanes a
+// block (packed); on one block (block); on the `csize` blocks of a
+// cluster, block rank r owning the columns of slice_of(nc, csize, r)
+// (cluster; global, its tableau slice at tab_g + (lane csize + r) m pitch).
+template <class T, int SHAPE>
 __global__ void __launch_bounds__(K5_MAX_THREADS)
-    simplex_dense_kernel(const T* __restrict__ W, int m, int n,
+    simplex_dense_kernel(const T* __restrict__ W, int m, int n, int batch,
                          const T* __restrict__ c_g, const T* __restrict__ lo_g,
                          const T* __restrict__ hi_g,
                          const unsigned char* __restrict__ active,
                          int max_iters, T ft, T ct, T pt, T prog,
-                         int stall_limit, int t_smem, T* t_scratch,
-                         int* status_o, T* obj_o, T* x_o, long long* basis_o,
+                         int stall_limit, int csize, T* tab_g, int* status_o,
+                         T* obj_o, T* x_o, long long* basis_o,
                          unsigned char* atu_o, int* iters_o) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ LaneScalars<T> s;
+  constexpr bool PK = SHAPE == SHAPE_PACKED;
+  constexpr bool CL = SHAPE == SHAPE_CLUSTER || SHAPE == SHAPE_GLOBAL;
   const int nc = n + m;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int C = CL ? csize : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = PK ? blockIdx.x * (blockDim.x >> 5) + warp
+                   : (CL ? blockIdx.x / C : blockIdx.x);
+  if (PK && b >= batch) return;  // no block barrier in the packed shape
+  int rank = 0;
+  if constexpr (CL) rank = (int)cg::this_cluster().block_rank();
+  const int tid = PK ? lane : threadIdx.x;
+  const int nt = PK ? 32 : blockDim.x;
+  const bool w0 = PK || warp == 0;  // the warp that runs the rows
   const T INF = T(INFINITY);
-  const Layout L = k5_layout(m, nc, (int)sizeof(T), t_smem != 0);
-  T* tab = t_smem ? reinterpret_cast<T*>(smem + L.tab)
-                  : t_scratch + (size_t)b * m * nc;
-  T* c = reinterpret_cast<T*>(smem + L.c);
-  T* lo = reinterpret_cast<T*>(smem + L.lo);
-  T* hi = reinterpret_cast<T*>(smem + L.hi);
-  T* zlo = reinterpret_cast<T*>(smem + L.zlo);
-  T* zup = reinterpret_cast<T*>(smem + L.zup);
-  T* span = reinterpret_cast<T*>(smem + L.span);
-  T* col = reinterpret_cast<T*>(smem + L.col);  // d, then the pivot row, z
-  T* xB = reinterpret_cast<T*>(smem + L.xB);
-  T* bl = reinterpret_cast<T*>(smem + L.bl);
-  T* bh = reinterpret_cast<T*>(smem + L.bh);
-  T* alpha = reinterpret_cast<T*>(smem + L.alpha);
-  T* ratio = reinterpret_cast<T*>(smem + L.ratio);
-  T* cB = reinterpret_cast<T*>(smem + L.cB);
-  T* cBb = reinterpret_cast<T*>(smem + L.cBb);
-  T* t1 = reinterpret_cast<T*>(smem + L.t1);
-  T* t2 = reinterpret_cast<T*>(smem + L.t2);
-  T* wsum = reinterpret_cast<T*>(smem + L.wsum);
-  int* basis = reinterpret_cast<int*>(smem + L.basis);
-  unsigned char* inb = smem + L.inb;
-  unsigned char* atu = smem + L.atu;
-  unsigned char* fre = smem + L.fre;
-  unsigned char* below = smem + L.below;
-  unsigned char* above = smem + L.above;
-  // a nonbasic column's value (0 for a basic one) under the current flags
-  auto zv = [&](int j) -> T {
-    return inb[j] ? T(0) : (atu[j] ? zup[j] : zlo[j]);
-  };
+  const Slice sl = slice_of(nc, C, rank);
+  const int pitch = sl.pitch, j0 = sl.j0, wr = sl.j1 - sl.j0;
+  const int nwl = sl.w1 - sl.w0;  // windows of the column sums here
+  const int nim = items(m), ninc = items(nc);
+  const Layout L = k5_layout(SHAPE, m, nc, C, (int)sizeof(T));
+  unsigned char* base = smem + (PK ? (size_t)warp * L.total : 0);
+  auto at = [&](size_t off) { return reinterpret_cast<T*>(base + off); };
+  T* tab = SHAPE == SHAPE_GLOBAL ? tab_g + ((size_t)b * C + rank) * m * pitch
+                                  : at(L.tab);
+  T* c = at(L.c);
+  T* lo = at(L.lo);
+  T* hi = at(L.hi);
+  T* zlo = at(L.zlo);
+  T* zup = at(L.zup);
+  T* span = at(L.span);
+  T* z = at(L.z);
+  T* cz = at(L.cz);  // c[j] zv(j), the nonbasic objective's terms
+  unsigned char* fre = base + L.fre;
+  unsigned char* inb = base + L.inb;
+  unsigned char* atu = base + L.atu;
+  T* xB = at(L.xB);
+  T* bl = at(L.bl);
+  T* bh = at(L.bh);
+  T* cBb = at(L.cBb);  // each row's cost c[basis]
+  T* cB1 = at(L.cB1);  // each row's phase-1 cost
+  T* alpha = at(L.alpha);
+  T* ratio = at(L.ratio);
+  T* t1 = at(L.t1);
+  T* t2 = at(L.t2);
+  T* prod = at(L.prod);
+  int* basis = reinterpret_cast<int*>(base + L.basis);
+  unsigned char* below = base + L.below;
+  unsigned char* above = base + L.above;
+  T* rsum = at(L.rsum);      // [3][nim]: the row sums' items
+  T* czall = at(L.czall);    // [2][ninc]: the nonbasic objective's items
+  T* ccol = at(L.ccol);      // [2][C][m]: the published columns
+  T* slot_t = at(L.slot_t);  // [warps][2]: each warp's winner: v, d
+  int* slot_i = reinterpret_cast<int*>(base + L.slot_i);  // j, any
+  T* mail_t = at(L.mail_t);  // [2][C][MAIL_T]
+  int* mail_i = reinterpret_cast<int*>(base + L.mail_i);  // [2][C][MAIL_I]
+  int* head_i = reinterpret_cast<int*>(base + L.head_i);
+  T* head_t = at(L.head_t);
+  const bool clocked = rank == 0 && tid == 0;
+  (void)clocked;
+  K5_CLOCK_DECL
 
-  // ---- start: the lane's constants and the logical basis -----------------
+  // a nonbasic column's value (0 for a basic one) under the current flags;
+  // jj is the column's place in this block's slice
+  auto zv = [&](int jj) -> T {
+    return inb[jj] ? T(0) : (atu[jj] ? zup[jj] : zlo[jj]);
+  };
   const T* cb = c_g + (size_t)b * nc;
   const T* lob = lo_g + (size_t)b * nc;
   const T* hib = hi_g + (size_t)b * nc;
+
+  // ---- start: the lane's constants and the logical basis -----------------
   int empty = 0;
-  for (int j = tid; j < nc; j += nt) {
+  for (int j = tid; j < nc; j += nt)
+    empty |= lob[j] > Op<T>::add(hib[j], ft);  // an empty box is INFEASIBLE
+  for (int jj = tid; jj < wr; jj += nt) {
+    const int j = j0 + jj;
     const T l = lob[j], h = hib[j];
     const bool fl = isfinite(l), fh = isfinite(h);
-    c[j] = cb[j];
-    lo[j] = l;
-    hi[j] = h;
-    fre[j] = !fl && !fh;
+    c[jj] = cb[j];
+    lo[jj] = l;
+    hi[jj] = h;
+    fre[jj] = !fl && !fh;
     const T zl = fl ? l : (fh ? h : T(0));
-    zlo[j] = zl;
-    zup[j] = fh ? h : zl;
-    span[j] = (fl && fh) ? Op<T>::sub(h, l) : INF;
-    inb[j] = j >= n;
-    atu[j] = j < n && !fl && fh;
-    empty |= l > Op<T>::add(h, ft);  // an empty box is INFEASIBLE
+    zlo[jj] = zl;
+    zup[jj] = fh ? h : zl;
+    span[jj] = (fl && fh) ? Op<T>::sub(h, l) : INF;
+    const bool up = j < n && !fl && fh;
+    inb[jj] = j >= n;
+    atu[jj] = up;
+    cz[jj] = Op<T>::mul(c[jj], j >= n ? T(0) : (up ? zup[jj] : zl));
   }
-  for (size_t e = tid; e < (size_t)m * nc; e += nt) tab[e] = -W[e];
-  for (int i = tid; i < m; i += nt) basis[i] = n + i;
-  empty = __syncthreads_or(empty);
-  for (int i = tid; i < m; i += nt)
-    xB[i] = -xla_dot<T>([&](int j) { return tab[(size_t)i * nc + j]; }, zv,
-                        nc);
-  if (tid == 0) {
-    const bool skip = empty || (active != nullptr && !active[b]);
-    s.status = skip ? INFEASIBLE : RUNNING;
-    s.p1 = true;
-    s.stall = 0;
-    s.last = INF;
-    s.it = 0;
-    s.run = s.status == RUNNING && 0 < max_iters;
-  }
-  __syncthreads();
-
-  // ---- the steps ----------------------------------------------------------
-  while (s.run) {
-    const bool bland = s.stall >= stall_limit;  // the count the step starts with
+  // xB = -T0 z0 with T0 = -W, every block of a cluster on all columns from
+  // global memory: first the items (row i, window w) into the tableau's
+  // space, then each row's total
+  {
+    auto z0 = [&](int j) -> T {
+      if (j >= n) return T(0);
+      const T l = lob[j], h = hib[j];
+      return isfinite(l) ? l : (isfinite(h) ? h : T(0));
+    };
+    T* part = tab;
+    const int lo_nc = pad_low(nc);
+#pragma unroll 1
+    for (int e = tid; e < m * ninc; e += nt) {
+      const int i = e / ninc, w = e - i * ninc;
+      const T* Wi = W + (size_t)i * nc;
+      // global loads, four terms ahead of the chain
+      T acc;
+      if (nc <= XLA_WINDOW) {
+        acc = Op<T>::mul(-Wi[0], z0(0));
+        int j = 1;
+#pragma unroll 1
+        for (; j + 4 <= nc; j += 4) {
+          T a[4], zj[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            a[k] = -Wi[j + k];
+            zj[k] = z0(j + k);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc = Op<T>::fma(a[k], zj[k], acc);
+        }
+#pragma unroll 1
+        for (; j < nc; ++j) acc = Op<T>::fma(-Wi[j], z0(j), acc);
+      } else {
+        acc = window_terms<T>([&](int j) { return Op<T>::mul(-Wi[j], z0(j)); }, nc,
+                              lo_nc, w);
+      }
+      part[e] = acc;
+    }
+    empty = lane_sync_or<SHAPE>(empty);
     for (int i = tid; i < m; i += nt) {
-      const int bi = basis[i];
-      const T l = lo[bi], h = hi[bi], x = xB[i];
+      xB[i] = -total_arr(part + (size_t)i * ninc, nc);
+      basis[i] = n + i;
+      bl[i] = lob[n + i];
+      bh[i] = hib[n + i];
+      cBb[i] = cb[n + i];
+    }
+    lane_sync<SHAPE>();
+  }
+  for (int i = 0; i < m; ++i)
+    for (int jj = tid; jj < pitch; jj += nt)
+      tab[(size_t)i * pitch + jj] = jj < wr ? -W[(size_t)i * nc + j0 + jj] : T(0);
+
+  // Warp 0 keeps the lane's state in registers, alike in its every thread
+  // (and in warp 0 of every block of a cluster); the other threads read
+  // what they need from head_i / head_t after the step's last barrier.
+  int status = (empty || (active != nullptr && !active[b])) ? INFEASIBLE : RUNNING;
+  int it = 0, stall = 0, stall_e = 0;
+  bool p1 = true, p1n = true;
+  T last = INF, last_e = INF, infeas = T(0), cbx = T(0);
+
+  // The row terms of the step about to start (below/above, the phase-1
+  // costs, the infeasibilities and c_B x_B), its three row sums side by side
+  // and its phase test; warp 0 only.  m <= 32: a row a thread, the sums as
+  // shuffle chains every thread runs alike; longer: a thread an item (a
+  // window of one sum), then every thread the totals.
+  auto rows_and_sums = [&]() {
+    T t1v = T(0), t2v = T(0), cbv = T(0), xv = T(0);
+    for (int i = lane; i < m; i += 32) {
+      const T x = xB[i], l = bl[i], h = bh[i], cbi = cBb[i];
       const bool bw = x < Op<T>::sub(l, ft), ab = x > Op<T>::add(h, ft);
-      bl[i] = l;
-      bh[i] = h;
       below[i] = bw;
       above[i] = ab;
-      t1[i] = bw ? Op<T>::sub(l, x) : T(0);
-      t2[i] = ab ? Op<T>::sub(x, h) : T(0);
-      cBb[i] = c[bi];
+      t1v = bw ? Op<T>::sub(l, x) : T(0);
+      t2v = ab ? Op<T>::sub(x, h) : T(0);
+      cbv = cbi;
+      xv = x;
+      cB1[i] = Op<T>::sub(T(ab), T(bw));
+      t1[i] = t1v;
+      t2[i] = t2v;
+      prod[i] = Op<T>::mul(cbi, x);
     }
-    __syncthreads();
-    // three serial row sums side by side, one a warp
-    if (tid == 0) s.infeas_lo = xla_sum<2, T>([&](int i) { return t1[i]; }, m);
-    if (tid == 32) s.infeas_hi = xla_sum<2, T>([&](int i) { return t2[i]; }, m);
-    if (tid == 64)
-      s.cbx = xla_dot<T>([&](int i) { return cBb[i]; },
-                         [&](int i) { return xB[i]; }, m);
-    __syncthreads();
-    if (tid == 0) {
-      const T infeas = Op<T>::add(s.infeas_lo, s.infeas_hi);
-      const bool p1n = s.p1 && infeas > ft;  // phase 1 ends once feasible
-      const bool entered = s.p1 && !p1n;
-      s.infeas = infeas;
-      s.p1n = p1n;
-      s.stall_e = entered ? 0 : s.stall;
-      s.last_e = entered ? INF : s.last;
+    T s_lo, s_hi;
+    if (m <= XLA_WINDOW) {
+      s_lo = __shfl_sync(FULL, t1v, 0);
+      s_hi = __shfl_sync(FULL, t2v, 0);
+      cbx = Op<T>::mul(__shfl_sync(FULL, cbv, 0), __shfl_sync(FULL, xv, 0));
+      int i = 1;
+#pragma unroll 1
+      for (; i + 4 <= m; i += 4) {  // four rows' shuffles ahead of their sums
+        T a[4], bb[4], u[4], v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          a[k] = __shfl_sync(FULL, t1v, i + k);
+          bb[k] = __shfl_sync(FULL, t2v, i + k);
+          u[k] = __shfl_sync(FULL, cbv, i + k);
+          v[k] = __shfl_sync(FULL, xv, i + k);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s_lo = Op<T>::add(s_lo, a[k]);
+          s_hi = Op<T>::add(s_hi, bb[k]);
+          cbx = Op<T>::fma(u[k], v[k], cbx);
+        }
+      }
+#pragma unroll 1
+      for (; i < m; ++i) {
+        const T a = __shfl_sync(FULL, t1v, i), bb = __shfl_sync(FULL, t2v, i);
+        const T u = __shfl_sync(FULL, cbv, i), v = __shfl_sync(FULL, xv, i);
+        s_lo = Op<T>::add(s_lo, a);
+        s_hi = Op<T>::add(s_hi, bb);
+        cbx = Op<T>::fma(u, v, cbx);
+      }
+    } else {
+      __syncwarp();
+      for (int e = lane; e < 3 * nim; e += 32) {
+        const int sidx = e / nim, w = e - sidx * nim;
+        rsum[e] = item_arr(sidx == 0 ? t1 : (sidx == 1 ? t2 : prod), m, w, 0);
+      }
+      __syncwarp();
+      s_lo = total_arr(rsum, m);
+      s_hi = total_arr(rsum + nim, m);
+      cbx = total_arr(rsum + 2 * nim, m);
     }
-    __syncthreads();
-    const bool p1n = s.p1n;
-    for (int i = tid; i < m; i += nt)
-      cB[i] = p1n ? Op<T>::sub(T(above[i]), T(below[i])) : cBb[i];
-    __syncthreads();
+    K5_TICK(P_ROW_SUMS);
+    infeas = Op<T>::add(s_lo, s_hi);
+    p1n = p1 && infeas > ft;  // phase 1 ends once feasible
+    const bool entered = p1 && !p1n;
+    stall_e = entered ? 0 : stall;
+    last_e = entered ? INF : last;
+    __syncwarp();  // the row flags and costs, for every thread of warp 0
+    K5_TICK(P_PHASE);
+  };
+  // what the other threads read after the step's last barrier
+  auto publish_head = [&](bool pend, int pend_r, T den) {
+    if (lane == 0) {
+      head_i[0] = p1n;
+      head_i[1] = stall >= stall_limit;  // Bland, by the count the step starts with
+      head_i[2] = pend;
+      head_i[3] = pend_r;
+      head_i[4] = status == RUNNING && it < max_iters;
+      head_t[0] = den;
+    }
+  };
+  lane_sync<SHAPE>();  // the tableau and the row state are in place
+  K5_TICK(P_START);
+  if (w0) {
+    rows_and_sums();
+    publish_head(false, 0, T(1));
+  }
+  lane_sync<SHAPE>();
+  K5_TICK(P_BARRIERS);
 
-    // pricing, a column a thread: d, eligibility and the entering column
-    T best = -INF;
-    int bestj = INT_MAX;
-    int any = 0;
-    for (int j = tid; j < nc; j += nt) {
-      const T dsum = xla_dot<T>([&](int i) { return cB[i]; },
-                                [&](int i) { return tab[(size_t)i * nc + j]; },
-                                m);
-      const T d = Op<T>::sub(p1n ? T(0) : c[j], dsum);
-      col[j] = d;
-      const T ad = fabs(d);
-      const bool el = !inb[j] && (fre[j] ? ad > ct : (atu[j] ? d : -d) > ct);
-      const T score = el ? (bland ? -T(j) : ad) : (bland ? T(-BIG) : T(-1));
-      any |= el;
-      if (wins(score, j, best, bestj)) {
-        best = score;
-        bestj = j;
+  int par = 0;  // the parity of the step's published buffers
+  // ---- the steps ----------------------------------------------------------
+  while (head_i[4]) {
+    const bool sp1n = head_i[0] != 0, bland = head_i[1] != 0;
+    const bool pend = head_i[2] != 0;
+    const int pr = head_i[3];
+    const T den = head_t[0];
+    const T* cBe = sp1n ? cB1 : cBb;
+
+    // pricing: the last pivot's rank-1 update of each column, then its
+    // reduced cost, eligibility and score; past the columns, the windows
+    // of the objective's nonbasic part (with the step's starting flags)
+    Cand<T> best{-INF, T(0), INT_MAX, 0};
+    const int nitems = wr + (sp1n ? 0 : nwl);
+    for (int item = tid; item < nitems; item += nt) {
+      if (item < wr) {
+        const int jj = item;
+        T* col = tab + jj;
+        // the column's own values first: the loads after its stores wait
+        const T cj = c[jj];
+        const bool nb = !inb[jj], fr = fre[jj], up = atu[jj];
+        const T dsum =
+            pend ? col_dot<T, true>(col, pitch, m, pr,
+                                    Op<T>::div(col[(size_t)pr * pitch], den),
+                                    alpha, cBe)
+                 : col_dot<T, false>(col, pitch, m, pr, T(0), alpha, cBe);
+        const int j = j0 + jj;
+        const T d = Op<T>::sub(sp1n ? T(0) : cj, dsum);
+        const T ad = fabs(d);
+        const bool el = nb && (fr ? ad > ct : (up ? d : -d) > ct);
+        const T score = el ? (bland ? -T(j) : ad) : (bland ? T(-BIG) : T(-1));
+        take(best, score, j, d, (int)el);
+      } else {
+        K5_TICK(P_PRICING);
+        const int w = sl.w0 + (item - wr);
+        const T s = item_arr(cz, nc, w, j0);
+        T* dst = czall + (size_t)par * ninc + w;
+        if constexpr (CL) {
+          for (int rk = 0; rk < C; ++rk)
+            *cg::this_cluster().map_shared_rank(dst, (unsigned)rk) = s;
+        } else {
+          *dst = s;
+        }
+        K5_TICK(P_CZV);
       }
     }
-    warp_argmax_t(best, bestj);
-    if ((tid & 31) == 0) {
-      s.red_v[tid >> 5] = best;
-      s.red_i[tid >> 5] = bestj;
-    }
-    any = __syncthreads_or(any);
-    if (tid < 32) {
-      const int nw = nt >> 5;
-      best = tid < nw ? s.red_v[tid] : -INF;
-      bestj = tid < nw ? s.red_i[tid] : INT_MAX;
-      warp_argmax_t(best, bestj);
-      if (tid == 0) {
-        s.q = bestj;
-        s.any_elig = any != 0;
+    K5_TICK(P_PRICING);
+    warp_best(best);
+    if constexpr (!PK) {
+      if (lane == 0) {
+        slot_t[2 * warp] = best.v;
+        slot_t[2 * warp + 1] = best.d;
+        slot_i[2 * warp] = best.j;
+        slot_i[2 * warp + 1] = best.any;
       }
     }
-    // the objective's nonbasic part, with the step's starting flags
-    if (!p1n)
-      block_xla_sum<T>([&](int j) { return Op<T>::mul(c[j], zv(j)); }, nc,
-                       wsum, &s.czv);
-    __syncthreads();
-
-    // the ratio test, a row a thread
-    const int q = s.q;
-    const T sigma = col[q] < T(0) ? T(1) : T(-1);  // up on d < 0
-    for (int i = tid; i < m; i += nt) {
-      const T a = tab[(size_t)i * nc + q];
-      alpha[i] = a;
-      const T eta = Op<T>::mul(-sigma, a);
-      const T ae = fabs(eta);
-      const bool ng = eta < T(0);
-      const T num = ng ? Op<T>::sub(xB[i], above[i] ? bh[i] : bl[i])
-                       : Op<T>::sub(below[i] ? bl[i] : bh[i], xB[i]);
-      const bool valid = ae > pt && !(ng ? below[i] : above[i]);
-      const T r = valid ? Op<T>::div(num, ae) : INF;
-      ratio[i] = r < T(0) ? T(0) : r;
+    K5_TICK(P_PRICING);
+    lane_sync<SHAPE>();
+    K5_TICK(P_BARRIERS);
+    if constexpr (!PK) {
+      best = Cand<T>{slot_t[0], slot_t[1], slot_i[0], slot_i[1]};
+      for (int wp = 1; wp < (nt >> 5); ++wp)
+        take(best, slot_t[2 * wp], slot_i[2 * wp], slot_t[2 * wp + 1],
+             slot_i[2 * wp + 1]);
     }
-    __syncthreads();
-    // the least ratio and, among the rows tied with it, the one of largest
-    // |eta| (Bland: the lowest basic column), on warp 0
-    if (tid < 32) {
+    // the winner's column and values: local on one block or warp, else
+    // published into every block of the cluster beside the windows' sums
+    int q = 0, astride = 1, win = 0;
+    T dq = T(0), cq = T(0), loq = T(0), hiq = T(0), spanq = T(0), zq = T(0);
+    bool anyq = false, atuq = false;
+    const T* acol = nullptr;
+    if constexpr (CL) {
+      cg::cluster_group cluster = cg::this_cluster();
+      const int qb = best.j;
+      const bool have = qb != INT_MAX;
+      const int jq = have ? qb - j0 : 0;
+      if (have) {
+        for (int e = tid; e < C * m; e += nt) {
+          const int rk = e / m, i = e - rk * m;
+          T* dst = ccol + ((size_t)par * C + rank) * m + i;
+          *cluster.map_shared_rank(dst, (unsigned)rk) = tab[(size_t)i * pitch + jq];
+        }
+      }
+      if (tid < C) {
+        T* mt = cluster.map_shared_rank(
+            mail_t + ((size_t)par * C + rank) * MAIL_T, (unsigned)tid);
+        int* mi = cluster.map_shared_rank(
+            mail_i + ((size_t)par * C + rank) * MAIL_I, (unsigned)tid);
+        mt[0] = best.v;
+        mt[1] = best.d;
+        mt[2] = have ? c[jq] : T(0);
+        mt[3] = have ? lo[jq] : T(0);
+        mt[4] = have ? hi[jq] : T(0);
+        mt[5] = have ? span[jq] : T(0);
+        mt[6] = have ? zv(jq) : T(0);
+        mi[0] = qb;
+        mi[1] = best.any;
+        mi[2] = have ? atu[jq] : 0;
+      }
+      cluster.sync();
+      K5_TICK(P_BARRIERS);
+      if (w0) {
+        const T* mt = mail_t + (size_t)par * C * MAIL_T;
+        const int* mi = mail_i + (size_t)par * C * MAIL_I;
+        int any = mi[1];
+        for (int rk = 1; rk < C; ++rk) {
+          if (wins(mt[rk * MAIL_T], mi[rk * MAIL_I], mt[win * MAIL_T],
+                   mi[win * MAIL_I]))
+            win = rk;
+          any |= mi[rk * MAIL_I + 1];
+        }
+        q = mi[win * MAIL_I];
+        dq = mt[win * MAIL_T + 1];
+        cq = mt[win * MAIL_T + 2];
+        loq = mt[win * MAIL_T + 3];
+        hiq = mt[win * MAIL_T + 4];
+        spanq = mt[win * MAIL_T + 5];
+        zq = mt[win * MAIL_T + 6];
+        anyq = any != 0;
+        atuq = mi[win * MAIL_I + 2] != 0;
+        acol = ccol + ((size_t)par * C + win) * m;
+      }
+    } else if (w0) {
+      q = best.j;
+      dq = best.d;
+      cq = c[q];
+      loq = lo[q];
+      hiq = hi[q];
+      spanq = span[q];
+      zq = zv(q);
+      anyq = best.any != 0;
+      atuq = atu[q] != 0;
+      acol = tab + q;
+      astride = pitch;
+    }
+
+    if (w0) {
+      // the ratio test, the rows strided over warp 0
+      const T sigma = dq < T(0) ? T(1) : T(-1);  // up on d < 0
       T mn = INF;
-      for (int i = tid; i < m; i += 32) mn = fmin(mn, ratio[i]);
+      for (int i = lane; i < m; i += 32) {
+        const T a = acol[(size_t)i * astride];
+        const T x = xB[i], l = bl[i], h = bh[i];
+        const bool bw = below[i], ab = above[i];
+        const T eta = Op<T>::mul(-sigma, a);
+        const T ae = fabs(eta);
+        const bool ng = eta < T(0);
+        const T num = ng ? Op<T>::sub(x, ab ? h : l) : Op<T>::sub(bw ? l : h, x);
+        const bool valid = ae > pt && !(ng ? bw : ab);
+        const T r = valid ? Op<T>::div(num, ae) : INF;
+        const T rc = r < T(0) ? T(0) : r;
+        alpha[i] = a;
+        ratio[i] = rc;
+        mn = fmin(mn, rc);
+      }
       for (int off = 16; off > 0; off >>= 1)
-        mn = fmin(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+        mn = fmin(mn, __shfl_xor_sync(FULL, mn, off));
+      K5_TICK(P_RATIO);
+      // the least ratio and, among the rows tied with it, the one of
+      // largest |eta| (Bland: the lowest basic column)
       const T tie = Op<T>::add(mn, ft);
       T pv = -INF;
-      int pi = INT_MAX;
-      for (int i = tid; i < m; i += 32) {
+      int r = INT_MAX;
+      for (int i = lane; i < m; i += 32) {
         const T ae = fabs(Op<T>::mul(-sigma, alpha[i]));
         const T pick = ratio[i] <= tie ? (bland ? -T(basis[i]) : ae)
                                        : (bland ? T(-BIG) : T(-1));
-        if (wins(pick, i, pv, pi)) {
+        if (wins(pick, i, pv, r)) {
           pv = pick;
-          pi = i;
+          r = i;
         }
       }
-      warp_argmax_t(pv, pi);
-      if (tid == 0) {
-        s.r = pi;
-        s.rmin = mn;
-      }
-    }
-    __syncthreads();
+      warp_argmax_all(pv, r);
+      __syncwarp();  // every row's alpha and ratio, for row r's
+      K5_TICK(P_ROW_PICK);
 
-    // the step's outcome, the bound flags, the objective watermark
-    if (tid == 0) {
-      const int r = s.r;
-      const T flip = span[q];
-      const bool row_blocks = s.rmin < flip;
-      const T theta = row_blocks ? ratio[r] : flip;
+      // the step's outcome, the bound flags, the objective watermark
+      const bool row_blocks = mn < spanq;
+      const T theta = row_blocks ? ratio[r] : spanq;
       const int code = p1n ? 1 : 0;  // INFEASIBLE = 1, OPTIMAL = 0
-      const int status = s.any_elig
-                             ? (isfinite(theta) ? RUNNING : UNBOUNDED - code)
-                             : code;
+      status = anyq ? (isfinite(theta) ? RUNNING : UNBOUNDED - code) : code;
       const bool moves = status == RUNNING;
       const bool do_pivot = moves && row_blocks, do_flip = moves && !row_blocks;
       const int p_col = basis[r];
-      const bool leave_up =
-          Op<T>::mul(-sigma, alpha[r]) < T(0) ? above[r] : !below[r];
-      const T zq = zv(q);
-      if (do_pivot)
-        atu[p_col] = leave_up;
-      else
-        atu[q] = atu[q] ^ do_flip;
-      s.newval = Op<T>::add(zq, Op<T>::mul(sigma, theta));
-      s.theta = theta;
-      s.moves = moves;
-      s.do_pivot = do_pivot;
-      if (do_pivot) {
-        basis[r] = q;
-        inb[p_col] = 0;
-        inb[q] = 1;
-      }
-      const T cur = p1n ? s.infeas : Op<T>::add(s.cbx, s.czv);
-      const bool progressed = cur < Op<T>::sub(s.last_e, prog);
-      s.stall = progressed ? 0 : s.stall_e + 1;
-      s.last = cur < s.last_e ? cur : s.last_e;
-      s.p1 = p1n;
-      s.it += 1;
-      s.status = status;
-      s.run = status == RUNNING && s.it < max_iters;
-    }
-    __syncthreads();
-
-    // the step: basic values along eta; a pivot's rank-1 update
-    if (s.moves) {
-      const T theta = s.theta;
-      const int r = s.r;
-      const bool do_pivot = s.do_pivot;
-      for (int i = tid; i < m; i += nt) {
-        const T eta = Op<T>::mul(-sigma, alpha[i]);
-        T v = (m <= XLA_WINDOW && i == 0)
-                  ? Op<T>::add(xB[0], Op<T>::mul(eta, theta))
-                  : Op<T>::fma(eta, theta, xB[i]);
-        if (do_pivot && i == r) v = s.newval;
-        xB[i] = v;
-      }
-      if (do_pivot) {
-        const T piv = alpha[r];
-        const T den = fabs(piv) > T(0) ? piv : T(1);
-        for (int j = tid; j < nc; j += nt)
-          col[j] = Op<T>::div(tab[(size_t)r * nc + j], den);
-        __syncthreads();
-        for (int j = tid; j < nc; j += nt) {
-          const T rj = col[j];
-          for (int i = 0; i < m; ++i) {
-            T* t = tab + (size_t)i * nc + j;
-            *t = i == r ? rj : Op<T>::fma(-alpha[i], rj, *t);
+      const T piv = alpha[r];
+      const bool leave_up = Op<T>::mul(-sigma, piv) < T(0) ? above[r] : !below[r];
+      const T newval = Op<T>::add(zq, Op<T>::mul(sigma, theta));
+      if (lane == 0) {
+        const int pq = p_col - j0, qq = q - j0;
+        const bool hp = pq >= 0 && pq < wr, hq = qq >= 0 && qq < wr;
+        if (do_pivot) {
+          if (hp) {
+            atu[pq] = leave_up;
+            inb[pq] = 0;
           }
+          if (hq) inb[qq] = 1;
+        } else if (hq) {
+          atu[qq] = atuq ^ do_flip;
+        }
+        if (do_pivot && hp) cz[pq] = Op<T>::mul(c[pq], zv(pq));
+        if (hq) cz[qq] = Op<T>::mul(c[qq], zv(qq));
+      }
+      T czv = T(0);
+      if (!p1n)
+        czv = total_arr(czall + (size_t)par * ninc, nc);
+      const T cur = p1n ? infeas : Op<T>::add(cbx, czv);
+      const bool progressed = cur < Op<T>::sub(last_e, prog);
+      stall = progressed ? 0 : stall_e + 1;
+      last = cur < last_e ? cur : last_e;
+      p1 = p1n;
+      it += 1;
+      __syncwarp();  // row r's basis, bounds and cost are read
+      K5_TICK(P_OUTCOME);
+
+      // the step: basic values along eta; a pivot's row takes q's value,
+      // bounds and cost (its rank-1 update waits for the next pricing)
+      if (moves) {
+        for (int i = lane; i < m; i += 32) {
+          const T eta = Op<T>::mul(-sigma, alpha[i]);
+          T v = (m <= XLA_WINDOW && i == 0)
+                    ? Op<T>::add(xB[0], Op<T>::mul(eta, theta))
+                    : Op<T>::fma(eta, theta, xB[i]);
+          if (do_pivot && i == r) {
+            v = newval;
+            basis[i] = q;
+            bl[i] = loq;
+            bh[i] = hiq;
+            cBb[i] = cq;
+          }
+          xB[i] = v;
         }
       }
+      K5_TICK(P_XB_STEP);
+      if (status == RUNNING && it < max_iters) rows_and_sums();
+      publish_head(do_pivot, r, fabs(piv) > T(0) ? piv : T(1));
     }
-    __syncthreads();
+    par ^= 1;
+    lane_sync<SHAPE>();
+    K5_TICK(P_BARRIERS);
   }
 
   // ---- finish -------------------------------------------------------------
-  for (int j = tid; j < nc; j += nt) col[j] = zv(j);
-  __syncthreads();
-  for (int i = tid; i < m; i += nt) col[basis[i]] = xB[i];
-  __syncthreads();
+  for (int jj = tid; jj < wr; jj += nt) z[jj] = zv(jj);
+  lane_sync<SHAPE>();
+  for (int i = tid; i < m; i += nt) {
+    const int bq = basis[i] - j0;
+    if (bq >= 0 && bq < wr) z[bq] = xB[i];
+  }
+  lane_sync<SHAPE>();
+  // the objective c . z: a chain of fused multiply-adds on one block when
+  // nc <= 32, else the rounded products c z (in place of z once written
+  // out), each window's sum into the lead block's buffer of the next
+  // parity, which no block reads before the cluster barrier below
+  for (int jj = tid; jj < wr; jj += nt) {
+    const int j = j0 + jj;
+    if (j < n) x_o[(size_t)b * n + j] = z[jj];
+    atu_o[(size_t)b * nc + j] = atu[jj];
+    if (nc > XLA_WINDOW) z[jj] = Op<T>::mul(c[jj], z[jj]);
+  }
+  T* fin = czall + (size_t)par * ninc;
   if (nc > XLA_WINDOW) {
-    block_xla_sum<T>([&](int j) { return Op<T>::mul(c[j], col[j]); }, nc,
-                     wsum, &s.obj);
-  } else {
-    if (tid == 0)
-      s.obj = xla_dot<T>([&](int j) { return c[j]; },
-                         [&](int j) { return col[j]; }, nc);
-    __syncthreads();
+    lane_sync<SHAPE>();
+    for (int wl = tid; wl < nwl; wl += nt) {
+      const int w = sl.w0 + wl;
+      const T s = window_arr(z, nc, pad_low(nc), w, j0);
+      if constexpr (CL)
+        *cg::this_cluster().map_shared_rank(fin + w, 0u) = s;
+      else
+        fin[w] = s;
+    }
   }
-  for (int j = tid; j < nc; j += nt) {
-    if (j < n) x_o[(size_t)b * n + j] = col[j];
-    atu_o[(size_t)b * nc + j] = atu[j];
+  if constexpr (CL)
+    cg::this_cluster().sync();
+  else
+    lane_sync<SHAPE>();
+  if (rank == 0) {
+    for (int i = tid; i < m; i += nt) basis_o[(size_t)b * m + i] = basis[i];
+    if (tid == 0) {
+      status_o[b] = status == RUNNING ? ITER_LIMIT : status;
+      obj_o[b] = nc > XLA_WINDOW ? total_arr(fin, nc) : fma_chain_arr(c, z, nc);
+      iters_o[b] = it;
+    }
   }
-  for (int i = tid; i < m; i += nt) basis_o[(size_t)b * m + i] = basis[i];
-  if (tid == 0) {
-    status_o[b] = s.status == RUNNING ? ITER_LIMIT : s.status;
-    obj_o[b] = s.obj;
-    iters_o[b] = s.it;
-  }
+  K5_CLOCK_STORE(clocked, b);
 }
 
-// Checks the launch and raises the kernel's shared-memory limit to the
-// card's opt-in once per device: 0, or the CUDA error the launch would meet.
 template <class T>
-int k5_prepare(int m, int n, int threads, int t_smem, size_t* bytes) {
-  static bool raised[MAX_DEVICES] = {};
+using K5Kernel = decltype(&simplex_dense_kernel<T, SHAPE_PACKED>);
+
+// The plan's launch configuration, after checking it: 0, or the CUDA error
+// the launch would meet.  Each kernel's shared-memory limit is raised to the
+// card's opt-in once per device, on its first use there.
+template <class T>
+int k5_config(int shape, int m, int n, int batch, int C, int threads, int P,
+              cudaStream_t stream, cudaLaunchConfig_t* cfg,
+              cudaLaunchAttribute* attr, K5Kernel<T>* kern) {
+  static bool raised[MAX_DEVICES][K5_N_SHAPES] = {};
   const int nc = n + m;
-  if (m <= 0 || n < 0 || nc > K5_MAX_TERMS || threads < K5_MIN_THREADS ||
-      threads > K5_MAX_THREADS || threads % 32 != 0)
+  if (m <= 0 || n < 0 || batch <= 0 || nc > K5_MAX_TERMS || m > K5_MAX_ROWS ||
+      shape < 0 || shape >= K5_N_SHAPES)
     return (int)cudaErrorInvalidValue;
-  const int cap = dynamic_smem_cap();
-  *bytes = k5_layout(m, nc, (int)sizeof(T), t_smem != 0).total;
-  if (cap <= 0 || *bytes > (size_t)cap) return (int)cudaErrorInvalidValue;
-  const int slot = device_slot();
-  if (slot < 0 || !raised[slot]) {
-    cudaError_t e = cudaFuncSetAttribute(
-        simplex_dense_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        cap);
-    if (e != cudaSuccess) return (int)e;
-    if (slot >= 0) raised[slot] = true;
+  if (shape == SHAPE_PACKED) {
+    if (m > K5_PACK_ROWS || nc > K5_PACK_COLS || P < 1 || P > K5_MAX_PACK ||
+        threads != 32 * P || C != 1)
+      return (int)cudaErrorInvalidValue;
+  } else {
+    const Slice last = slice_of(nc, C, C - 1);
+    if (threads < 32 || threads > K5_MAX_THREADS || threads % 32 != 0 ||
+        (shape == SHAPE_BLOCK && C != 1) ||
+        (shape != SHAPE_BLOCK && (C < 2 || C > K5_MAX_CLUSTER ||
+                                  nc <= XLA_WINDOW || last.j1 <= last.j0)))
+      return (int)cudaErrorInvalidValue;
   }
+  const int cap = dynamic_smem_cap();
+  const size_t bytes = k5_smem_bytes(shape, m, nc, C, P, (int)sizeof(T));
+  if (cap <= 0 || bytes > (size_t)cap) return (int)cudaErrorInvalidValue;
+  *kern = shape == SHAPE_PACKED    ? simplex_dense_kernel<T, SHAPE_PACKED>
+          : shape == SHAPE_BLOCK   ? simplex_dense_kernel<T, SHAPE_BLOCK>
+          : shape == SHAPE_CLUSTER ? simplex_dense_kernel<T, SHAPE_CLUSTER>
+                                   : simplex_dense_kernel<T, SHAPE_GLOBAL>;
+  const int slot = device_slot();
+  if (slot < 0 || !raised[slot][shape]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        *kern, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+    if (e != cudaSuccess) return (int)e;
+    if (slot >= 0) raised[slot][shape] = true;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  const int blocks = shape == SHAPE_PACKED ? (batch + P - 1) / P : batch * C;
+  cfg->gridDim = dim3((unsigned)blocks, 1, 1);
+  cfg->blockDim = dim3(threads, 1, 1);
+  cfg->dynamicSmemBytes = bytes;
+  cfg->stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
   return 0;
+}
+
+template <class T>
+int k5_max_clusters(int shape, int m, int n, int C, int threads, int P) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  K5Kernel<T> kern;
+  int err = k5_config<T>(shape, m, n, 1, C, threads, P, 0, &cfg, attr, &kern);
+  if (err) return -err;
+  int count = 0;
+  cudaError_t e =
+      cudaOccupancyMaxActiveClusters(&count, (const void*)kern, &cfg);
+  return e == cudaSuccess ? count : -(int)e;
 }
 
 template <class T>
@@ -564,24 +1163,28 @@ int k5_launch(const void* W, int m, int n, int batch, const void* c,
               const void* lo, const void* hi, const void* active,
               int max_iters, double feas_tol, double cost_tol,
               double pivot_tol, double progress_tol, int stall_limit,
-              int threads, int t_smem, void* t_scratch, void* status,
-              void* obj, void* x, void* basis, void* at_upper, void* iters,
-              void* stream) {
-  size_t bytes = 0;
-  const int err = k5_prepare<T>(m, n, threads, t_smem, &bytes);
+              int shape, int C, int threads, int P, void* scratch,
+              void* status, void* obj, void* x, void* basis, void* at_upper,
+              void* iters, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  K5Kernel<T> kern;
+  int err = k5_config<T>(shape, m, n, batch, C, threads, P,
+                         static_cast<cudaStream_t>(stream), &cfg, attr, &kern);
   if (err) return err;
-  if (!t_smem && t_scratch == nullptr) return (int)cudaErrorInvalidValue;
-  simplex_dense_kernel<T>
-      <<<batch, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(W), m, n, static_cast<const T*>(c),
-          static_cast<const T*>(lo), static_cast<const T*>(hi),
-          static_cast<const unsigned char*>(active), max_iters,
-          static_cast<T>(feas_tol), static_cast<T>(cost_tol),
-          static_cast<T>(pivot_tol), static_cast<T>(progress_tol),
-          stall_limit, t_smem, static_cast<T*>(t_scratch),
-          static_cast<int*>(status), static_cast<T*>(obj),
-          static_cast<T*>(x), static_cast<long long*>(basis),
-          static_cast<unsigned char*>(at_upper), static_cast<int*>(iters));
+  if (shape == SHAPE_GLOBAL && scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const T*>(W), m, n, batch,
+      static_cast<const T*>(c), static_cast<const T*>(lo),
+      static_cast<const T*>(hi), static_cast<const unsigned char*>(active),
+      max_iters, static_cast<T>(feas_tol), static_cast<T>(cost_tol),
+      static_cast<T>(pivot_tol), static_cast<T>(progress_tol), stall_limit,
+      C, static_cast<T*>(scratch), static_cast<int*>(status),
+      static_cast<T*>(obj), static_cast<T*>(x),
+      static_cast<long long*>(basis), static_cast<unsigned char*>(at_upper),
+      static_cast<int*>(iters));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -589,53 +1192,77 @@ int k5_launch(const void* W, int m, int n, int batch, const void* c,
 
 extern "C" {
 
-// The dynamic shared bytes a block may opt into on the current card, which
-// the launch plan reads (it sets STATIC_SMEM_RESERVE of them aside for
-// static shared memory).  Returns 0 or a CUDA error.
-int simplex_dense_smem_optin(int* smem_optin) {
+// The card's limits the launch plan reads: the dynamic shared bytes a block
+// may opt into (the plan sets STATIC_SMEM_RESERVE of them aside) and the
+// number of SMs.  Returns 0 or a CUDA error.
+int simplex_dense_device_limits(int* smem_optin, int* sms) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(smem_optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   return (int)e;
 }
 
-// A block's dynamic shared bytes for m rows, n structural columns, values
-// of `dsize` bytes and the tableau in shared memory or not (for the
-// wrapper's check of its own arithmetic).
-long long simplex_dense_smem_bytes(int m, int n, int dsize, int t_smem) {
-  return (long long)k5_layout(m, n + m, dsize, t_smem != 0).total;
+// A block's dynamic shared bytes under a plan (shape 0 packed, 1 block, 2
+// cluster, 3 global) for values of `dsize` bytes (for the wrapper's check of its own
+// arithmetic).
+long long simplex_dense_smem_bytes(int dsize, int shape, int m, int n, int C,
+                                   int P) {
+  return (long long)k5_smem_bytes(shape, m, n + m, C, P, dsize);
 }
 
-// Launches K5 on `stream`, one block of `threads` a lane, in float32 (dsize
-// 4) or float64 (8); returns 0 on success, else the CUDA error (a launch
-// that does not fit is refused before it).  All pointers are device
-// pointers: W (m, n+m), c/lo/hi (batch, n+m) in the dtype, active (batch)
-// bytes or null, t_scratch (batch, m, n+m) in the dtype when the tableau is
-// not in shared memory (t_smem 0); outputs status/iters (batch) i32, obj
-// (batch) and x (batch, n) in the dtype, basis (batch, m) i64, at_upper
-// (batch, n+m) bytes.
+// How many clusters of C blocks of the plan the card holds at once
+// (cudaOccupancyMaxActiveClusters; blocks for C = 1), or minus the CUDA
+// error.
+int simplex_dense_max_clusters(int dsize, int shape, int m, int n, int C,
+                               int threads, int P) {
+  if (dsize == 4) return k5_max_clusters<float>(shape, m, n, C, threads, P);
+  if (dsize == 8) return k5_max_clusters<double>(shape, m, n, C, threads, P);
+  return -(int)cudaErrorInvalidValue;
+}
+
+// Launches K5 on `stream` as the wrapper's plan says, in float32 (dsize 4)
+// or float64 (8): shape 0 (packed, P lanes a block of 32 P threads), 1 (a
+// block of `threads` a lane), 2 (a cluster of C such blocks a lane) or 3
+// (global: shape 2 with the tableau in `scratch`, batch x C x m x pitch
+// values, pitch = slice_of(n + m, C, 0).pitch; null for the other shapes);
+// returns 0 on success, else the CUDA error (a plan that does not fit is
+// refused before the launch).  All pointers are device pointers: W (m,
+// n+m), c/lo/hi (batch, n+m) in the dtype, active (batch) bytes or null;
+// outputs status/iters (batch) i32, obj (batch) and x (batch, n) in the
+// dtype, basis (batch, m) i64, at_upper (batch, n+m) bytes.
 int simplex_dense_launch(int dsize, const void* W, int m, int n, int batch,
                          const void* c, const void* lo, const void* hi,
                          const void* active, int max_iters, double feas_tol,
                          double cost_tol, double pivot_tol,
-                         double progress_tol, int stall_limit, int threads,
-                         int t_smem, void* t_scratch, void* status, void* obj,
-                         void* x, void* basis, void* at_upper, void* iters,
-                         void* stream) {
+                         double progress_tol, int stall_limit, int shape,
+                         int C, int threads, int P, void* scratch,
+                         void* status, void* obj, void* x, void* basis,
+                         void* at_upper, void* iters, void* stream) {
   if (batch <= 0) return 0;
   if (dsize == 4)
     return k5_launch<float>(W, m, n, batch, c, lo, hi, active, max_iters,
                             feas_tol, cost_tol, pivot_tol, progress_tol,
-                            stall_limit, threads, t_smem, t_scratch, status,
+                            stall_limit, shape, C, threads, P, scratch, status,
                             obj, x, basis, at_upper, iters, stream);
   if (dsize == 8)
     return k5_launch<double>(W, m, n, batch, c, lo, hi, active, max_iters,
                              feas_tol, cost_tol, pivot_tol, progress_tol,
-                             stall_limit, threads, t_smem, t_scratch, status,
-                             obj, x, basis, at_upper, iters, stream);
+                             stall_limit, shape, C, threads, P, scratch,
+                             status, obj, x, basis, at_upper, iters, stream);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef K5_CLOCKS
+// Where the next launches write each lane's cycles by part: (batch,
+// K5_N_PARTS) unsigned 64-bit (null: nowhere).
+int simplex_dense_set_clocks(void* buf) {
+  unsigned long long* p = static_cast<unsigned long long*>(buf);
+  return (int)cudaMemcpyToSymbol(k5_clocks, &p, sizeof(p));
+}
+#endif
 
 }  // extern "C"

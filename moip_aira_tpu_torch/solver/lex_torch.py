@@ -109,6 +109,10 @@ class LexKernel:
     def host_syncs(self) -> int:
         return self._syncs + self.lp.syncs
 
+    @property
+    def plan_launches(self):
+        return self.lp.plan_launches
+
     def _bnb(self, c_struct, obj_int, srhs, active):
         """Min ``c_struct @ x`` s.t. the structural rows, the objective rows
         bounded by ``srhs`` and integrality, for every lane.  Returns
@@ -250,7 +254,8 @@ class TorchLexBackend:
     one static width has nothing to save.  Counters: ``device_batches``,
     ``lanes``, ``fallback_count`` (lanes re-solved by NumpyLexBackend) and
     the kernel's ``bnb_steps``, ``lp_steps`` and ``host_syncs`` (with the
-    one result copy of each batch)."""
+    one result copy of each batch), and its LP solver's ``plan_launches``
+    (K5's launches by plan)."""
 
     name = "jax"
 
@@ -275,6 +280,10 @@ class TorchLexBackend:
     @property
     def host_syncs(self) -> int:
         return self.kernel.host_syncs + self.device_batches
+
+    @property
+    def plan_launches(self):
+        return self.kernel.plan_launches
 
     def lex_solve_batch(self, reqs: List[LexRequest]) -> List[LexOutcome]:
         out: List[LexOutcome] = []

@@ -35,9 +35,17 @@ floor and warm start.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
-from moip_aira_tpu_torch.solver.cuda_dense import check_lanes, launch_dense_loop
+from moip_aira_tpu_torch.solver.cuda_dense import (
+    XLA_WINDOW,
+    check_lanes,
+    launch_dense_loop,
+    pad_low,
+    windows,
+)
 from moip_aira_tpu_torch.solver.simplex_np import (
     COST_TOL,
     FEAS_TOL,
@@ -76,9 +84,11 @@ class DenseLPSolver:
     every running lane; the largest ``iters`` of each call), ``syncs`` the
     times the host read the device (the plain loop's condition after each
     step, K5's largest ``iters`` once a call) and ``launches`` K5's
-    launches.  ``pivots`` holds, after a call of the plain loop, each
-    lane's pivots: its ``iters`` less its bound flips and its last,
-    pricing-only step (K5 does not count them; None until then)."""
+    launches, ``plan_launches`` them by the plan's (shape, C, P)
+    (``cuda_dense.dense_loop_plan``).  ``pivots`` holds, after a call of
+    the plain loop, each lane's pivots: its ``iters`` less its bound flips
+    and its last, pricing-only step (K5 does not count them; None until
+    then)."""
 
     def __init__(
         self,
@@ -104,6 +114,7 @@ class DenseLPSolver:
         self.steps = 0
         self.syncs = 0
         self.launches = 0
+        self.plan_launches: Counter = Counter()
         self.pivots = None
 
     def __call__(self, c, lo, hi, active=None) -> LPOutcome:
@@ -111,6 +122,7 @@ class DenseLPSolver:
             out = launch_dense_loop(
                 self.W, c, lo, hi, active, self.max_iters, self.feas_tol,
                 self.cost_tol, self.pivot_tol, self.progress_tol, self.stall_limit,
+                plan_launches=self.plan_launches,
             )
             if c.shape[0]:  # a launch, and one host read of its step count
                 self.launches += 1
@@ -321,24 +333,18 @@ class DenseLPSolver:
         )
 
 
-#: XLA's CPU backend sums at most this many terms in one pass, in float32
-#: and float64 alike; a longer axis is cut into windows of this many terms,
-#: zero-padded at both ends
-XLA_WINDOW = 32
-
-
 def xla_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The sum of ``x`` over ``dim`` in the order XLA's CPU backend adds a
     float32 or float64 reduction: term by term from the first while the
     axis has at most ``XLA_WINDOW`` terms, else each window of
-    ``XLA_WINDOW`` terms so (the padding split low = pad // 2, high = the
-    rest), then the windows' sums the same way."""
+    ``XLA_WINDOW`` terms so (``windows(L)`` of them, ``pad_low(L)`` zeros
+    low and the rest high: cuda_dense's rule, which K5 follows), then the
+    windows' sums the same way."""
     x = x.movedim(dim, -1)
     L = x.shape[-1]
     if L > XLA_WINDOW:
-        nw = -(-L // XLA_WINDOW)
-        pad = nw * XLA_WINDOW - L
-        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        nw, lo = windows(L), pad_low(L)
+        x = torch.nn.functional.pad(x, (lo, nw * XLA_WINDOW - L - lo))
         x = x.unflatten(-1, (nw, XLA_WINDOW))
         return xla_sum(xla_sum(x, -1), -1)
     terms = x.unbind(-1)

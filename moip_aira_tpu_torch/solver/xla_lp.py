@@ -38,7 +38,8 @@ class XlaLPBatch:
     ``_run_xla`` ignores them.  ``steps``, ``syncs`` and ``launches`` count
     the solver's loop steps, its host reads of the device and K5's
     launches; ``seconds`` is the host's time inside the calls, each of
-    which waits for its results."""
+    which waits for its results; ``plan_launches`` counts K5's launches by
+    their plan's (shape, C, P)."""
 
     kernel = "xla"
 
@@ -62,6 +63,10 @@ class XlaLPBatch:
     @property
     def steps(self) -> int:
         return self.solver.steps
+
+    @property
+    def plan_launches(self):
+        return self.solver.plan_launches
 
     @property
     def syncs(self) -> int:

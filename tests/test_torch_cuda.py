@@ -863,20 +863,51 @@ def dense_case(name, lanes_n, dtype, seed=1):
     return W, [torch.as_tensor(a, dtype=dtype) for a in (c, lo, hi)]
 
 
+#: K5's cases on the card: the smoke's phase dense-loop shapes (2AP40 on 32
+#: of its 256 lanes: the plain loop on the CPU takes minutes at 256; 2AP60,
+#: whose slices K5 keeps in global memory, on 4), and the shape the plan
+#: picks for each
+DENSE_LOOP_CASES = [
+    ("G3KP10", 64, "packed"), ("KP2D50", 64, "packed"), ("G2AP05", 64, "packed"),
+    ("2AP20", 32, "cluster"), ("2AP40", 32, "cluster"), ("2AP60", 4, "global"),
+]
+
+
+def lex_root_case(lanes_n=32):
+    """The lex backend's first LP call on 2AP20: the stage-0 objective of
+    each lane over the root box, its objective rows bounded by the initial
+    rhs or a golden point, under the identity and the reversed ordering in
+    turn (chip_smoke.py's lex batch), in float64."""
+    p = read_problem(os.path.join(EX, "2AP20.lp"))
+    n, m, k = p.n, p.m_total, p.objcnt
+    gold = np.array(golden_points("2AP20"), dtype=np.float64)
+    rhs = [p.initial_rhs(), p.initial_rhs()] + [gold[i % len(gold)] for i in range(lanes_n - 2)]
+    perm = [list(range(k)), list(range(k))[::-1]] + [
+        list(range(k)) if (i // len(gold)) % 2 == 0 else list(range(k))[::-1]
+        for i in range(lanes_n - 2)
+    ]
+    rhs, perm = np.array(rhs), np.array(perm)
+    is_min = p.objsen is Sense.MIN
+    free = np.full(rhs.shape, np.inf)
+    olo, ohi = (-free, rhs) if is_min else (rhs, free)
+    c = np.zeros((lanes_n, n + m))
+    c[:, :n] = (1.0 if is_min else -1.0) * p.C[perm[:, 0]]
+    lo = np.hstack([np.tile(np.concatenate([p.lb, p.row_lb]), (lanes_n, 1)), olo])
+    hi = np.hstack([np.tile(np.concatenate([p.ub, p.row_ub]), (lanes_n, 1)), ohi])
+    W = np.hstack([np.vstack([p.A, p.C]), -np.eye(m)])
+    return W, [torch.as_tensor(a) for a in (c, lo, hi)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize(
-    "name,lanes_n",
-    # the smoke's shapes (2AP40 on 32 of its 256 lanes: the plain loop on
-    # the CPU takes minutes at 256); 2AP40's tableau sits in global memory
-    [("G3KP10", 64), ("KP2D50", 64), ("G2AP05", 64), ("2AP20", 32), ("2AP40", 32)],
-)
-def test_dense_loop_kernel_matches_plain_bit_for_bit(cuda_device, name, lanes_n, dtype):
+@pytest.mark.parametrize("name,lanes_n,shape", DENSE_LOOP_CASES)
+def test_dense_loop_kernel_matches_plain_bit_for_bit(cuda_device, name, lanes_n, shape, dtype):
     """K5 on the card against DenseLPSolver on the CPU, on the same lanes
-    (a third of them inactive): status, objective, x, basis, at-upper flags
-    and iterations equal bit for bit on every lane, in one launch, and the
-    step count is the plain loop's."""
-    from moip_aira_tpu_torch.solver.cuda_dense import dense_loop_plan, device_smem_cap
+    (a third of them inactive), in the plan its wrapper picks: status,
+    objective, x, basis, at-upper flags and iterations equal bit for bit on
+    every lane, in one launch counted by its plan, and the step count is
+    the plain loop's."""
+    from moip_aira_tpu_torch.solver.cuda_dense import loop_plan
     from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
     from moip_aira_tpu_torch.solver.simplex_dense import DenseLPSolver
     from moip_aira_tpu_torch.solver.xla_lp import F32_TOLERANCES
@@ -895,8 +926,86 @@ def test_dense_loop_kernel_matches_plain_bit_for_bit(cuda_device, name, lanes_n,
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
     assert card.launches == LAUNCHES["simplex_dense"] - k5 == 1
     assert card.steps == plain.steps and card.syncs == 1
-    plan = dense_loop_plan(*W.shape, dtype, device_smem_cap(0))
-    assert plan.t_smem == (name != "2AP40")
+    plan = loop_plan(card.W, lanes_n)
+    assert plan.shape == shape
+    assert card.plan_launches == {(plan.shape, plan.C, plan.P): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,lanes_n,dtype",
+    [(n, k, dt) for dt in (torch.float32, torch.float64) for n, k, _ in DENSE_LOOP_CASES]
+    + [("lex", 32, torch.float64)],
+)
+def test_dense_loop_every_plan_matches_plain_bit_for_bit(cuda_device, name, lanes_n, dtype):
+    """K5 forced into every plan that fits (``cuda_dense.loop_plans``: a
+    warp a lane at P = 1, 2, 4 and 8, a block, each cluster size with the
+    tableau in shared and in global memory) at the smoke's shapes and at
+    the lex batch's root LPs of 2AP20: every output of every lane equal to
+    the plain loop's, each plan one launch."""
+    from moip_aira_tpu_torch.solver import cuda_dense
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
+    from moip_aira_tpu_torch.solver.simplex_dense import DenseLPSolver
+    from moip_aira_tpu_torch.solver.xla_lp import F32_TOLERANCES
+
+    if name == "lex":
+        W, args = lex_root_case(lanes_n)
+    else:
+        W, args = dense_case(name, lanes_n, dtype, seed=3)
+    tol = F32_TOLERANCES if dtype == torch.float32 else {}
+    plain = DenseLPSolver(torch.as_tensor(W, dtype=dtype), 2000, **tol)
+    want = plain(*args)
+    W_dev = torch.as_tensor(W, dtype=dtype, device=cuda_device)
+    args_dev = [a.to(cuda_device) for a in args]
+    plans = cuda_dense.loop_plans(W_dev)
+    shapes = {p.shape for p in plans}
+    assert shapes == {
+        "2AP20": {"block", "cluster", "global"}, "lex": {"block", "cluster", "global"},
+        "2AP40": {"cluster", "global"}, "2AP60": {"global"},
+    }.get(name, {"packed", "block"})
+    for plan in plans:
+        k5 = LAUNCHES["simplex_dense"]
+        got = cuda_dense.launch_dense_loop(
+            W_dev, *args_dev, None, plain.max_iters, plain.feas_tol, plain.cost_tol,
+            plain.pivot_tol, plain.progress_tol, plain.stall_limit, plan=plan,
+        )
+        torch.cuda.synchronize()
+        for f in want._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), (plan, f)
+        assert LAUNCHES["simplex_dense"] - k5 == 1
+
+
+@pytest.mark.cuda
+def test_dense_loop_plan_that_does_not_fit_raises_before_launching(cuda_device):
+    """A K5 plan whose shape, shared memory, block or cluster the kernel
+    cannot take is refused before the launch and raises; nothing is
+    counted."""
+    from dataclasses import replace
+
+    from moip_aira_tpu_torch.solver import cuda_dense
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
+
+    W, args = dense_case("2AP40", 4, torch.float64)
+    W_dev = torch.as_tensor(W, device=cuda_device)
+    args_dev = [a.to(cuda_device) for a in args]
+    m, nc = W.shape
+    plan = cuda_dense.loop_plan(W_dev, 4)
+    assert (plan.shape, plan.C) == ("cluster", 8)
+    k5 = LAUNCHES["simplex_dense"]
+    for bad in (
+        replace(plan, C=4),  # a quarter of the float64 tableau a block: 294 KB
+        replace(plan, threads=48),
+        replace(plan, C=16),
+        replace(plan, shape="global", C=16),
+        replace(plan, shape="global", threads=512),
+        cuda_dense.DenseLoopPlan(m, nc, 8, "block", 1, 256),  # all of it: 1.1 MB
+        cuda_dense.DenseLoopPlan(m, nc, 8, "packed", 1, 128, 4),  # 82 rows on a warp
+    ):
+        with pytest.raises(RuntimeError):
+            cuda_dense.launch_dense_loop(
+                W_dev, *args_dev, None, 2000, 1e-9, 1e-9, 1e-9, 1e-12, 60, plan=bad,
+            )
+    assert LAUNCHES["simplex_dense"] == k5
 
 
 @pytest.mark.cuda

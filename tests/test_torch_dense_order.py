@@ -21,12 +21,7 @@ import torch
 
 from moip_aira_tpu.solver import simplex_jax
 from moip_aira_tpu_torch.solver import cuda_dense
-from moip_aira_tpu_torch.solver.cuda_dense import (
-    DenseLoopPlan,
-    dense_loop_plan,
-    dense_loop_smem_bytes,
-    launch_dense_loop,
-)
+from moip_aira_tpu_torch.solver.cuda_dense import dense_loop_plan, launch_dense_loop
 from moip_aira_tpu_torch.solver.simplex_dense import DenseLPSolver, xla_dot, xla_sum
 from moip_aira_tpu_torch.solver.simplex_torch import ITER_LIMIT
 from moip_aira_tpu_torch.solver.xla_lp import F32_TOLERANCES
@@ -198,39 +193,165 @@ def test_cpu_addcmul_rounds_once(dtype, L):
 # -- (b) K5's launch plan and wrapper -------------------------------------------
 
 
+#: the clusters of each size C the H100 holds at once under K5's plans
+#: (cudaOccupancyMaxActiveClusters; 1: blocks of the block plan), as
+#: tools/k5_bench.py --sweep reads them on the card (NVIDIA H100 80GB HBM3)
+H100_HELD = {
+    ("2AP20", torch.float32): {1: 264, 2: 132, 4: 92},
+    ("2AP20", torch.float64): {1: 132, 2: 66, 4: 30},
+    ("2AP40", torch.float32): {4: 30, 8: 30},
+    ("2AP40", torch.float64): {8: 15},
+    ("2AP60", torch.float32): {2: 132, 4: 62, 8: 30},  # its global plans
+    ("2AP60", torch.float64): {2: 66, 4: 30, 8: 15},
+}
+H100_SMS = 132
+PACKED = ("packed", 1, 4, 128, "4 x T")
+
+
 @pytest.mark.parametrize(
-    "name,dtype,t_smem,threads",
+    "name,dtype,lanes,want",
     [
-        ("2AP20", torch.float64, True, 448),  # the lex backend's batch
-        ("2AP20", torch.float32, True, 448),
-        ("2AP40", torch.float32, False, 512),  # the XLA engine's 256 lanes
-        ("2AP40", torch.float64, False, 512),
-        ("G3KP10", torch.float32, True, 128),
-        ("G2AP05", torch.float64, True, 128),
+        (name, dtype, lanes, PACKED)
+        for name in ("G3KP10", "KP2D50", "G2AP05", "G3AP05")
+        for dtype in (torch.float32, torch.float64)
+        for lanes in (2, 27, 64)
+    ]
+    + [
+        ("2AP20", torch.float32, 1, ("cluster", 4, 1, 160, "T/4")),
+        ("2AP20", torch.float32, 32, ("cluster", 4, 1, 160, "T/4")),  # the XLA engine's
+        ("2AP20", torch.float32, 256, ("block", 1, 1, 256, "T")),
+        ("2AP20", torch.float64, 1, ("cluster", 4, 1, 160, "T/4")),
+        ("2AP20", torch.float64, 32, ("cluster", 2, 1, 256, "T/2")),  # the lex batch
+        ("2AP20", torch.float64, 256, ("block", 1, 1, 256, "T")),
+        ("2AP40", torch.float32, 1, ("cluster", 8, 1, 256, "T/8")),
+        ("2AP40", torch.float32, 256, ("cluster", 8, 1, 256, "T/8")),  # the XLA engine's
+        ("2AP40", torch.float64, 1, ("cluster", 8, 1, 256, "T/8")),
+        ("2AP40", torch.float64, 256, ("cluster", 8, 1, 256, "T/8")),
+        # no block of a cluster of 8 holds a slice: the tableau in global memory
+        ("2AP60", torch.float32, 8, ("global", 8, 1, 256, "T/8 global")),
+        ("2AP60", torch.float32, 32, ("global", 4, 1, 256, "T/4 global")),
+        ("2AP60", torch.float64, 8, ("global", 8, 1, 256, "T/8 global")),
+        ("2AP60", torch.float64, 32, ("global", 2, 1, 256, "T/2 global")),  # the lex batch
     ],
 )
-def test_dense_loop_plan_at_the_bundled_shapes(name, dtype, t_smem, threads):
-    p, W = system(name)
+def test_dense_loop_plan_at_the_bundled_shapes(name, dtype, lanes, want):
+    """K5's plan at the H100's shared bytes and cluster counts: a warp a
+    lane for the tiny LPs, for 2AP20 the largest cluster of which the card
+    holds one for every lane (a block a lane past that), clusters of 8 for 2AP40
+    in both dtypes (its tableau fits no block, nor in float64 a cluster of
+    4), and for 2AP60, whose slice fits no block of a cluster of 8, a
+    cluster with its slices in global memory by the same rule; the plan's
+    bytes fit the card, and every shape but that last resort keeps the
+    tableau in shared memory."""
+    _, W = system(name)
     m, nc = W.shape
-    plan = dense_loop_plan(m, nc, dtype, H100_SMEM)
-    assert plan == DenseLoopPlan(m, nc, 8 if dtype == torch.float64 else 4, threads, t_smem)
-    cap = H100_SMEM - 1024
-    assert plan.smem_bytes <= cap
-    if not t_smem:
-        assert dense_loop_smem_bytes(m, nc, plan.dsize, True) > cap
-    if name == "2AP20" and dtype == torch.float64:
+    held = H100_HELD.get((name, dtype), {})
+    plan = dense_loop_plan(m, nc, dtype, lanes, H100_SMEM, H100_SMS, held)
+    assert (plan.shape, plan.C, plan.P, plan.threads, plan.layout) == want
+    assert plan in cuda_dense.plans_that_fit(m, nc, dtype, H100_SMEM)
+    assert plan.dsize == (8 if dtype == torch.float64 else 4)
+    assert plan.smem_bytes <= H100_SMEM - 1024
+    pitch = plan.slices[0].pitch
+    tableau = m * pitch * plan.dsize
+    if plan.shape == "global":
+        assert plan.scratch_values == plan.C * m * pitch
+        assert plan.smem_bytes + tableau == cuda_dense.dense_loop_smem_bytes(
+            "cluster", m, nc, plan.C, 1, plan.dsize)
+        assert {p.shape for p in cuda_dense.split_plans(m, nc, dtype, H100_SMEM).values()} == {
+            "global"}
+    else:
+        assert plan.smem_bytes > tableau  # the tableau's slice is in it
+        assert plan.scratch_values == 0
+    assert sum(s.j1 - s.j0 for s in plan.slices) == nc
+    if name == "2AP20" and dtype == torch.float64 and plan.shape == "block":
         # the tableau, 42 x 442 float64, and the vectors beside it
-        assert plan.smem_bytes - dense_loop_smem_bytes(m, nc, 8, False) == 148512
-        assert plan.smem_bytes == 178016  # 173.8 KB of the 226 KB a block may take
+        assert plan.smem_bytes == 182288  # 178.0 KB of the 226 KB a block may take
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("nc", [14, 37, 38, 54, 442, 1682])
+def test_cluster_split_of_a_column_sum_is_xla_sum(nc, C, dtype):
+    """The cluster's order of an nc-long sum (the objective's nonbasic part
+    and the final objective): each block sums its own windows of the padded
+    axis (``slice_of``: whole windows, the first at column 32 w -
+    pad_low(nc)), each window term by term, and the lead block sums the
+    windows' sums in order; bit for bit ``simplex_dense.xla_sum`` on rows of
+    mixed magnitudes.  The slices cover the columns once, in order."""
+    rng = np.random.default_rng(nc * 10 + C)
+    x = torch.as_tensor(
+        rng.standard_normal((16, nc)) * rng.choice([1e-8, 1.0, 1e8], (16, nc)), dtype=dtype
+    )
+    x[0, :5] = -0.0  # a sum of negative zeros keeps its sign only term by term
+    lo = cuda_dense.pad_low(nc)
+    sums, edge = [], 0
+    for r in range(C):
+        s = cuda_dense.slice_of(nc, C, r)
+        assert s.j0 == edge and s.j1 >= s.j0
+        edge = s.j1
+        if nc <= 32:
+            if s.j1 > s.j0:  # one chain, on the block that holds every column
+                acc = x[:, 0].clone()
+                for j in range(1, nc):
+                    acc = acc + x[:, j]
+                sums.append(acc)
+            continue
+        for w in range(s.w0, s.w1):
+            cols = [32 * w + k - lo for k in range(32)]
+            assert all(s.j0 <= j < s.j1 for j in cols if 0 <= j < nc)
+            terms = [x[:, j] if 0 <= j < nc else torch.zeros_like(x[:, 0]) for j in cols]
+            acc = terms[0].clone()
+            for t in terms[1:]:
+                acc = acc + t
+            sums.append(acc)
+    assert edge == nc and len(sums) == cuda_dense.items(nc)
+    if nc <= 32:
+        total = sums[0]
+    else:
+        total = xla_sum(torch.stack(sums, 1), 1)
+    want = xla_sum(x, 1)
+    assert torch.equal(total, want) and torch.equal(torch.signbit(total), torch.signbit(want))
+
+
+@pytest.mark.parametrize(
+    "m,nc,dtype,shape",
+    [
+        (82, 1682, torch.float64, "cluster"),  # 2AP40
+        (102, 2602, torch.float32, "cluster"),  # 2AP50
+        (102, 2602, torch.float64, "global"),
+        (122, 3722, torch.float32, "global"),  # 2AP60
+        (162, 6562, torch.float32, "global"),  # 2AP80
+        (202, 10202, torch.float32, "global"),  # 2AP100
+        (202, 10202, torch.float64, "global"),
+    ],
+)
+def test_dense_loop_plan_takes_global_memory_last(m, nc, dtype, shape):
+    """The 2AP ladder past 2AP40: a cluster of 8 keeps its slices in
+    shared memory while one block holds a slice (2AP50 in float32);
+    after that only ``global`` plans are chosen among, and they fit."""
+    plans = cuda_dense.split_plans(m, nc, dtype, H100_SMEM)
+    assert {p.shape for p in plans.values()} == {shape}
+    assert 8 in plans
+    for lanes in (1, 32, 256):
+        plan = dense_loop_plan(m, nc, dtype, lanes, H100_SMEM, H100_SMS, {8: 33})
+        assert plan.shape == shape and plan.smem_bytes <= H100_SMEM - 1024
+    assert {p.shape for p in cuda_dense.plans_that_fit(m, nc, dtype, H100_SMEM)} >= {"global"}
 
 
 def test_dense_loop_plan_refuses():
+    """No plan for a dtype K5 has no build for, for an LP whose vectors
+    fit no block of a cluster of 8 even with the tableau in global memory
+    (400 rows and 20,000 columns in float64), or for no rows."""
     with pytest.raises(ValueError, match="float32 or float64"):
-        dense_loop_plan(42, 442, torch.float16, H100_SMEM)
+        dense_loop_plan(42, 442, torch.float16, 32, H100_SMEM, H100_SMS, {})
     with pytest.raises(ValueError, match="shared bytes"):
-        dense_loop_plan(400, 20000, torch.float64, H100_SMEM)
+        dense_loop_plan(400, 20000, torch.float64, 32, H100_SMEM, H100_SMS, {})
     with pytest.raises(ValueError, match="no LP"):
-        dense_loop_plan(0, 10, torch.float32, H100_SMEM)
+        dense_loop_plan(0, 10, torch.float32, 32, H100_SMEM, H100_SMS, {})
+    with pytest.raises(ValueError, match="packs no LP"):
+        cuda_dense.loop_plan_for(42, 442, torch.float64, "packed", 1, H100_SMEM)
+    with pytest.raises(ValueError, match="takes no cluster"):
+        cuda_dense.loop_plan_for(4, 14, torch.float64, "cluster", 2, H100_SMEM)
 
 
 @pytest.fixture
@@ -264,6 +385,34 @@ def test_wrapper_refuses_before_any_launch(no_library):
     assert solver.launches == 0
 
 
+def test_backend_stats_count_k5_launches_by_plan():
+    """backend_stats carries K5's launches by (shape, C, P) as sorted
+    [shape, C, P, launches] rows: the lex backend's own counter, and the
+    XLA engine's summed over its devices' wrappers; a CPU run has none."""
+    from collections import Counter
+    from types import SimpleNamespace
+
+    from moip_aira_tpu_torch.api import backend_stats
+
+    lex = SimpleNamespace(name="jax", plan_launches=Counter({("packed", 1, 4): 3}))
+    assert backend_stats(lex)["k5_plans"] == [["packed", 1, 4, 3]]
+    kernels = {
+        dev: SimpleNamespace(kernel="xla", launches=k, steps=0, syncs=0, plan_launches=plans)
+        for dev, k, plans in (
+            ("cuda:0", 3, Counter({("cluster", 4, 1): 2, ("cluster", 2, 1): 1})),
+            ("cuda:1", 1, Counter({("cluster", 4, 1): 1})),
+        )
+    }
+    wave = SimpleNamespace(name="wave", lp_kernels=kernels, device_lanes={"cuda:0": 5})
+    st = backend_stats(wave)
+    assert st["kernel_launches"] == 4
+    assert st["k5_plans"] == [["cluster", 2, 1, 1], ["cluster", 4, 1, 3]]
+    _, W = system("G3KP10")
+    solver = DenseLPSolver(torch.as_tensor(W), 2000)
+    solver(*(torch.as_tensor(a) for a in lp_boxes(problems("G3KP10")[1], 4, seed=2)))
+    assert solver.plan_launches == Counter() and solver.launches == 0
+
+
 def test_new_files_import_nothing_of_the_jax_package():
     """The static rule of test_port_imports_nothing_of_the_jax_package on
     the files of K5's path and its tools."""
@@ -271,6 +420,7 @@ def test_new_files_import_nothing_of_the_jax_package():
         "moip_aira_tpu_torch/solver/cuda_dense.py",
         "moip_aira_tpu_torch/solver/simplex_dense.py",
         "moip_aira_tpu_torch/solver/xla_lp.py",
+        "tools/k5_bench.py",
         "tools/lex_bench.py",
         "tools/xla_parity.py",
     ):
