@@ -8,14 +8,15 @@ and K2 (revised simplex, wider LPs) on the per-LP path, K3 (B&B fragments,
 a subtree per lane) on the fragment path -> f64 certification and audit ->
 host branch and bound; read_problem -> solve_front -> the knapsack front
 DP, K4 (one launch per item) for single-capacity bi-objective knapsacks;
-and K5 (the dense simplex loop of solver/simplex_dense.py) under the lex
-backend and the wave's XLA engine — and fails unless every phase passes:
+K5 (the dense simplex loop of solver/simplex_dense.py) under the wave's
+XLA engine; and K6 (the lex backend's whole batch, K5's loop at every B&B
+node, one launch a batch) — and fails unless every phase passes:
 
 1. probe:     the card (nvidia-smi), torch, CUDA and nvcc versions;
 2. build:     K1 (csrc/dense_simplex.cu), K2 (csrc/revised_simplex.cu),
-              K3 (csrc/bb_fragment.cu), K4 (csrc/kp_dp.cu) and K5
-              (csrc/simplex_dense.cu), one nvcc each, started together,
-              each timed;
+              K3 (csrc/bb_fragment.cu), K4 (csrc/kp_dp.cu), K5
+              (csrc/simplex_dense.cu) and K6 (csrc/lex_bnb.cu), one nvcc
+              each, started together, each timed;
 3. kernels:   K1 against its plain PyTorch version on the card, at 2AP20's
               and G2AP05's LP shapes with 256 lanes (cold and half-warm):
               raw outputs equal bit for bit on every lane, then certified
@@ -108,16 +109,20 @@ backend and the wave's XLA engine — and fails unless every phase passes:
               row with its shape, C, P, threads and layout, ms (CUDA
               events, median of 5), the plain version's ms (one run), the
               bound (from the plain run's steps and pivots) and us a step;
-16. lex:      the lex backend (backend="jax", solver/lex_torch.py: its B&B
-              loop plain PyTorch in f64, its LPs K5, one launch a B&B step)
-              on the card: G2AP05 (the sweep), G3AP05 and G3KP10 with
-              n_workers=2 against their goldens and IPs (24 / 57 / 109) and
-              the CPU's B&B and LP steps (LEX_FRONTS), then one call of
-              the lex kernel on 2AP20's 32 lanes (the initial rhs and
-              golden points under both orderings) whose statuses, results,
-              IPs and steps must equal the same call's on the CPU; each row
-              with seconds, batches, lanes, fallbacks, B&B and LP steps,
-              host syncs, K5's launches and us an LP step; at most
+16. lex:      the lex backend (backend="jax", solver/lex_torch.py: on the
+              card each batch one launch of K6, every stage's B&B and every
+              node's LP inside it, f64) on the card: G2AP05 (the sweep),
+              G3AP05 and G3KP10 with n_workers=2 against their goldens and
+              IPs (24 / 57 / 109) and the CPU's totals of the lanes' nodes
+              and LP steps (LEX_FRONTS), with K6 launched once a batch and
+              no other kernel; then one call of the lex kernel on 2AP20's
+              32 lanes (the initial rhs and golden points under both
+              orderings) whose statuses, results, IPs and each lane's nodes
+              and LP steps must equal the same call's on the CPU, K6 timed
+              on it (CUDA events, median of 5) beside the plain version
+              (one run) and its bound (lex_bound); each row with seconds,
+              batches, lanes, fallbacks, nodes, LP steps, the critical
+              path, host syncs, K6's launches and plans; at most
               MAX_FALLBACK_SHARE of lanes may fall back;
 17. mesh:     the twin of __graft_entry__.dryrun_multichip: G3AP05, 6
               workers, the wave backend with mesh_devices=8 on the card
@@ -125,7 +130,7 @@ backend and the wave's XLA engine — and fails unless every phase passes:
               the counts of the reference on one device (111 IPs, 8 rounds,
               domain_ips [68], pre_ips 43); then the distributed round of
               the lex kernel on G2AP05 (statuses 0, the front's two ends,
-              their min and max);
+              their min and max; one K6 launch a card);
 18. mesh-devices: the wave over a mesh of several devices (solve_front
               with mesh_devices through the mesh scheduler; one kernel
               wrapper per device, each wave's lanes split over the devices
@@ -167,8 +172,8 @@ and the exit code is not 0.  Run from the root of a checkout:
 
 ``--only mesh-devices`` runs phases 1, 2 and 18 alone (no kernel table),
 to try the multi-device wave on a machine with several cards; ``--only
-xla`` and ``--only dense-loop`` run phases 1, 2 and that phase alone (xla
-without K1's and K2's figures).
+xla``, ``--only dense-loop`` and ``--only lex`` run phases 1, 2 and that
+phase alone (xla without K1's and K2's figures).
 """
 
 from __future__ import annotations
@@ -193,7 +198,8 @@ REVISED_SHAPES = (("2AP40", 256, ("cold", "warm")), ("2AP100", 64, ("cold",)))
 #: a few take clusters of several blocks, a full batch one block a lane
 REVISED_SUBSETS = (1, 8, 64)
 CROSSOVER_SHAPES = ("2AP20", "2AP40")
-KERNELS = ("dense_simplex", "revised_simplex", "bb_fragment", "kp_dp", "simplex_dense")
+KERNELS = ("dense_simplex", "revised_simplex", "bb_fragment", "kp_dp", "simplex_dense",
+           "lex_bnb")
 #: K4's instances: bundled, or generated by utils/generate.kp_lp (seed 1)
 #: with this many items
 DP_INSTANCES = (("G2KP50", None), ("2KP100", None), ("2KP500", 500))
@@ -230,18 +236,22 @@ CERT_RTOL = 1e-7  # certified f64 optima of the same LP from two bases
 # be re-solved on the host (the H100 runs re-solve 0-0.16%)
 MAX_FALLBACK_SHARE = 0.05
 #: the lex backend's fronts (backend="jax", n_workers=2): their IPs, and
-#: the B&B and LP steps of the same front on the CPU (`python3
-#: tools/lex_bench.py --cpu-fronts`, torch 2.13.0+cpu), which K5 must
-#: repeat; its fronts and the lex kernel's batch fail past
+#: the lanes' B&B nodes and LP steps summed over the same front on the CPU
+#: (`python3 tools/lex_bench.py --cpu-fronts`, torch 2.13.0+cpu), which
+#: K6 must repeat; its fronts and the lex kernel's batch fail past
 #: MAX_FALLBACK_SHARE of their lanes re-solved on the host
 LEX_FRONTS = (
-    ("G2AP05", 24, 110, 2293),
-    ("G3AP05", 57, 338, 7161),
-    ("G3KP10", 109, 14688, 241954),
+    ("G2AP05", 24, 274, 5514),
+    ("G3AP05", 57, 471, 9637),
+    ("G3KP10", 109, 22629, 326282),
 )
 #: the lex kernel's batch at full width: 2AP20 (n = 400, m = 42, an f64
 #: tableau of 42 x 442 a lane), the reference backend's 32 lanes
 LEX_BATCH = ("2AP20", 32)
+#: the lex kernel's batch at the fronts' shape: G3KP10's 32 lanes (n = 10,
+#: m = 4), K6's ``packed`` plan, the one its fronts and the mesh round
+#: launch
+LEX_PACKED_BATCH = ("G3KP10", 32)
 #: the XLA engine's fronts at `real`'s widths: (instance, dtype, n_workers,
 #: the phase whose K1 front it stands beside)
 XLA_FRONTS = (
@@ -1752,31 +1762,122 @@ def lex_batch(p, lanes):
     return np.array(rhs), np.array(perm)
 
 
+def lex_bound(m, n, k, nodes, iters, pivots):
+    """The least time the card could take for one K6 launch on these
+    lanes, in ms, and what sets it.  Bytes: W, each lane's rhs and perm,
+    the objectives and bounds read once, each lane's status, results, IPs,
+    nodes and LP steps written once.  Operations, as ``dense_bound`` counts
+    a K5 row, from the plain run's per-lane counts: 2 m (n + m) a node for
+    its start (the basic values), a step for pricing and a pivot for the
+    rank-1 update, over the card's float64 rate."""
+    import numpy as np
+
+    nc = n + m
+    B = len(nodes)
+    nbytes = 8 * (m * nc + 2 * B * k + k * n + 2 * n + 2 * (m - k)) + n + k \
+        + B * (4 + 8 * k + 4 + 8 + 8)
+    work = float(np.sum(nodes)) + float(np.sum(iters)) + float(np.sum(pivots))
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = work * 2 * m * nc / PEAK_F64_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lex_batch_row(name, lanes, want_shape, smi):
+    """One call of the lex kernel on ``lex_batch``'s lanes of ``name`` on
+    the card (one K6 launch, in the plan ``want_shape`` when given) and on
+    the CPU, held lane by lane: status, results, IPs, nodes and LP steps;
+    then K6 timed beside its plain version and its bound.  Returns the
+    row and the largest difference (0)."""
+    import numpy as np
+    import torch
+
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.solver.cuda_lex import lex_plan
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
+    from moip_aira_tpu_torch.solver.lex_torch import LEX_RESOURCE, make_lex_kernel
+
+    p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+    rhs, perm = lex_batch(p, lanes)
+    outs, times, kerns = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        kern = make_lex_kernel(p, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            k5 = LAUNCHES["simplex_dense"]
+        t0 = time.perf_counter()
+        out = kern(rhs, perm)
+        if dev == "cuda":
+            if not all(t.is_cuda for t in out):
+                raise AssertionError("the lex kernel's results left the card")
+            torch.cuda.synchronize()
+            k5 = LAUNCHES["simplex_dense"] - k5
+        times[dev] = time.perf_counter() - t0
+        outs[dev] = [t.cpu().numpy() for t in out] + [
+            kern.lane_nodes.cpu().numpy(), kern.lane_iters.cpu().numpy()
+        ]
+        kerns[dev] = kern
+    for a, b, what in zip(outs["cuda"], outs["cpu"],
+                          ("status", "results", "ips", "nodes", "iters")):
+        if not np.array_equal(a, b):
+            bad = np.nonzero((a != b).reshape(len(a), -1).any(1))[0][:10].tolist()
+            raise AssertionError(f"{name}: the lex kernel's {what} on the card differ from "
+                                 f"the CPU's on lanes {bad}")
+    kern, cpu = kerns["cuda"], kerns["cpu"]
+    if kern.launches != 1 or k5 != 0:
+        raise AssertionError(f"{name}: K6 {kern.launches}, K5 {k5} launches")
+    plan = lex_plan(kern.W, lanes)
+    if want_shape is not None and plan.shape != want_shape:
+        raise AssertionError(f"{name}: K6 ran {plan}, not the {want_shape} plan")
+    status = outs["cuda"][0]
+    resource = int((status == LEX_RESOURCE).sum())
+    if resource > MAX_FALLBACK_SHARE * lanes:
+        raise AssertionError(f"{name}: {resource} of {lanes} lanes would fall back")
+    ms = cuda_ms(lambda: kern(rhs, perm))
+    bound_ms, bound_by = lex_bound(p.m_total, p.n, p.objcnt, cpu.lane_nodes.numpy(),
+                                   cpu.lane_iters.numpy(), cpu.lane_pivots.numpy())
+    row = {
+        "phase": "lex", "instance": name, "entry": "make_lex_kernel", "lanes": lanes,
+        "seconds": times["cuda"], "cpu_seconds": times["cpu"], "ms": ms,
+        "plain_ms": 1e3 * times["cpu"], "bound_ms": bound_ms, "bound_by": bound_by,
+        "plan": f"{plan.shape} C={plan.C} P={plan.P}", "layout": plan.layout,
+        "threads": plan.threads, "smem_bytes": plan.smem_bytes,
+        "status_counts": np.bincount(status, minlength=4).tolist(),
+        "ips": int(outs["cuda"][2].sum()), "fallback_lanes": resource,
+        "nodes": cpu.nodes, "iters": cpu.iters, "pivots": int(cpu.lane_pivots.sum()),
+        "path_nodes": cpu.path_nodes, "path_iters": cpu.path_iters,
+        "us_per_path_iter": 1e3 * ms / max(1, cpu.path_iters),
+        "cpu_bnb_steps": cpu.bnb_steps, "cpu_lp_steps": cpu.lp_steps,
+        "equal_to_cpu": True, "card": smi,
+    }
+    err = max(float(np.abs(a.astype(np.float64) - b).max())
+              for a, b in zip(outs["cuda"], outs["cpu"]))
+    return row, err
+
+
 def phase_lex():
-    """The lex backend (``backend="jax"``: solver/lex_torch.py, its B&B
-    loop plain PyTorch in f64, its LPs K5, one launch a B&B step) on the
-    card: three fronts against their goldens, IPs and the CPU's B&B and LP
-    steps, then one batch of the lex kernel at 2AP20 held against the same
-    call on the CPU, steps included.  Returns the rows and K5's launches
-    on the fronts."""
+    """The lex backend (``backend="jax"``: solver/lex_torch.py, its whole
+    batch one launch of K6) on the card: three fronts against their
+    goldens, IPs and the CPU's totals of the lanes' nodes and LP steps,
+    with K6 launched once a batch and no other kernel, then one batch of
+    the lex kernel at the fronts' plan (G3KP10, ``packed``) and one at
+    2AP20, each held against the same call on the CPU lane by lane, counts
+    included, and K6 timed on each beside its plain version.  Returns the
+    rows, K6's entry of the kernel table (without its launches) and K6's
+    launches on the fronts."""
     import numpy as np
     import torch
 
     from moip_aira_tpu_torch.api import solve_front
     from moip_aira_tpu_torch.io import read_problem
     from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
-    from moip_aira_tpu_torch.solver.lex_torch import (
-        LEX_RESOURCE, TorchLexBackend, make_lex_kernel,
-    )
+    from moip_aira_tpu_torch.solver.lex_torch import TorchLexBackend
 
     smi = card()
     rows = []
-    k5_launches = 0
-    for name, want_ips, want_bnb, want_lp in LEX_FRONTS:
+    k6_launches = 0
+    for name, want_ips, want_nodes, want_iters in LEX_FRONTS:
         p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
         be = TorchLexBackend(p, device="cuda")
-        if not be.kernel.lp.W.is_cuda:
-            raise AssertionError(f"{name}: the lex kernel's system is not on the card")
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -1788,81 +1889,67 @@ def phase_lex():
             raise AssertionError(f"{name}: the lex front differs from the golden")
         if front.ip_count != want_ips:
             raise AssertionError(f"{name}: {front.ip_count} IPs, want {want_ips}")
-        k5 = launches.pop("simplex_dense")
-        if any(launches.values()) or not k5 == be.bnb_steps > 0:
+        k6 = launches.pop("lex_bnb")
+        if any(launches.values()) or not k6 == be.launches == be.device_batches > 0:
             raise AssertionError(
-                f"{name}: the lex path launched K5 {k5} times over {be.bnb_steps} "
-                f"B&B steps, and {launches}"
+                f"{name}: the lex path launched K6 {k6} times over {be.device_batches} "
+                f"batches, and {launches}"
             )
-        if (be.bnb_steps, be.lp_steps) != (want_bnb, want_lp):
+        if (be.nodes, be.iters) != (want_nodes, want_iters):
             raise AssertionError(
-                f"{name}: {be.bnb_steps} B&B and {be.lp_steps} LP steps, the CPU "
-                f"{want_bnb} and {want_lp}"
+                f"{name}: {be.nodes} nodes and {be.iters} LP steps, the CPU "
+                f"{want_nodes} and {want_iters}"
             )
-        k5_launches += k5
+        k6_launches += k6
         if be.fallback_count > MAX_FALLBACK_SHARE * be.lanes:
             raise AssertionError(
                 f"{name}: {be.fallback_count} of {be.lanes} lanes fell back "
                 f"(limit {MAX_FALLBACK_SHARE:.0%})"
             )
+        st = front.backend_stats
         row = {
             "phase": "lex", "instance": name, "entry": "solve_front",
             "seconds": seconds, "points": int(front.points.shape[0]),
             "ips": int(front.ip_count), "rounds": front.rounds,
             "device_batches": be.device_batches, "lanes": be.lanes,
-            "fallback_count": be.fallback_count, "bnb_steps": be.bnb_steps,
-            "lp_steps": be.lp_steps, "host_syncs": be.host_syncs,
-            "k5_launches": k5, "cpu_steps_equal": True,
-            "us_per_lp_step": seconds / max(1, be.lp_steps) * 1e6,
+            "fallback_count": be.fallback_count, "nodes": be.nodes, "iters": be.iters,
+            "path_nodes": be.path_nodes, "path_iters": be.path_iters,
+            "host_syncs": be.host_syncs, "k6_launches": k6, "k6_plans": st["k6_plans"],
+            "cpu_counts_equal": True,
+            "us_per_node": seconds / max(1, be.nodes) * 1e6,
             "golden": True, "card": smi,
         }
         emit(row)
         rows.append(row)
 
-    name, lanes = LEX_BATCH
-    p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
-    rhs, perm = lex_batch(p, lanes)
-    outs, times, kerns = {}, {}, {}
-    for dev in ("cuda", "cpu"):
-        kern = make_lex_kernel(p, device=dev)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = kern(rhs, perm)
-        if dev == "cuda":
-            if not all(t.is_cuda for t in out):
-                raise AssertionError("the lex kernel's results left the card")
-            torch.cuda.synchronize()
-        times[dev] = time.perf_counter() - t0
-        outs[dev] = [t.cpu().numpy() for t in out]
-        kerns[dev] = kern
-    if not all(np.array_equal(a, b) for a, b in zip(outs["cuda"], outs["cpu"])):
-        raise AssertionError(f"{name}: the lex kernel on the card differs from the CPU")
-    steps = {d: (k.bnb_steps, k.lp_steps) for d, k in kerns.items()}
-    if steps["cuda"] != steps["cpu"] or kerns["cuda"].lp.launches != kerns["cuda"].bnb_steps:
-        raise AssertionError(
-            f"{name}: (B&B, LP) steps {steps}, K5 launches {kerns['cuda'].lp.launches}"
-        )
-    status = outs["cuda"][0]
-    resource = int((status == LEX_RESOURCE).sum())
-    if resource > MAX_FALLBACK_SHARE * lanes:
-        raise AssertionError(f"{name}: {resource} of {lanes} lanes would fall back")
-    kern = kerns["cuda"]
-    row = {
-        "phase": "lex", "instance": name, "entry": "make_lex_kernel", "lanes": lanes,
-        "seconds": times["cuda"], "cpu_seconds": times["cpu"],
-        "status_counts": np.bincount(status, minlength=4).tolist(),
-        "ips": int(outs["cuda"][2].sum()), "fallback_lanes": resource,
-        "bnb_steps": kern.bnb_steps, "lp_steps": kern.lp_steps,
-        "cpu_lp_steps": kerns["cpu"].lp_steps, "host_syncs": kern.host_syncs,
-        "k5_launches": kern.lp.launches,
-        "us_per_lp_step": times["cuda"] / max(1, kern.lp_steps) * 1e6,
-        "cpu_us_per_lp_step": times["cpu"] / max(1, kerns["cpu"].lp_steps) * 1e6,
-        "equal_to_cpu": True, "card": smi,
+    batches = {}
+    for (name, lanes), want in ((LEX_PACKED_BATCH, "packed"), (LEX_BATCH, None)):
+        row, err = lex_batch_row(name, lanes, want, smi)
+        emit(row)
+        rows.append(row)
+        batches[name] = (row, err)
+    row = batches[LEX_BATCH[0]][0]
+    packed = batches[LEX_PACKED_BATCH[0]][0]
+    # no single PyTorch call computes a batch of lexicographic B&Bs
+    entry = {
+        "name": "lex_bnb",
+        "route": "cuda",
+        "source": "moip_aira_tpu_torch/csrc/lex_bnb.cu",
+        # no Pallas kernel: the XLA while_loop of the reference's B&B
+        "replaces": "moip_aira_tpu/solver/lex_jax.py:198",
+        # over both batches, each held against the CPU lane by lane
+        "max_abs_err": max(err for _, err in batches.values()),
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "plan": row["plan"],
+        # the same numbers at the plan the fronts and the mesh round launch
+        "packed": {key: packed[key] for key in (
+            "instance", "lanes", "ms", "plain_ms", "bound_ms", "bound_by", "plan")},
     }
-    emit(row)
-    rows.append(row)
-    return rows, k5_launches
+    return rows, entry, k6_launches
 
 
 def phase_mesh():
@@ -1918,12 +2005,18 @@ def phase_mesh():
     rhs = np.tile(p.initial_rhs(), (B, 1))
     perm = np.array([perms[i % 2] for i in range(B)])
     torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     out = step(rhs, perm)
     torch.cuda.synchronize()
     round_s = time.perf_counter() - t0
     if not all(t.is_cuda for t in out):
         raise AssertionError("mesh: the distributed round's results left the card")
+    # one K6 launch on each card of the mesh (its domains share a card)
+    cards = len({str(d) for d in mesh.domain_devices()})
+    round_launches = {k: v for k, v in LAUNCHES.items() if v}
+    if round_launches != {"lex_bnb": cards}:
+        raise AssertionError(f"mesh: the distributed round launched {round_launches}")
     status, results, all_status, lo, hi = (t.cpu().numpy() for t in out)
     gold = golden_front("G2AP05")
     if not ((status == 0).all() and (all_status == 0).all()):
@@ -1934,7 +2027,7 @@ def phase_mesh():
         raise AssertionError(f"mesh: lo {lo.tolist()} hi {hi.tolist()}")
     emit({
         "phase": "mesh", "instance": "G2AP05", "entry": "make_distributed_round",
-        "mesh_shape": mesh.shape, "lanes": B, "seconds": round_s,
+        "mesh_shape": mesh.shape, "lanes": B, "seconds": round_s, "k6_launches": cards,
         "results": results.tolist(), "lo": lo[0].tolist(), "hi": hi[0].tolist(),
         "card": smi,
     })
@@ -2260,7 +2353,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the kernel phase's LP lanes (default 0)")
-    ap.add_argument("--only", choices=("mesh-devices", "xla", "dense-loop"),
+    ap.add_argument("--only", choices=("mesh-devices", "xla", "dense-loop", "lex"),
                     help="run the probe, the build and this phase alone")
     args = ap.parse_args()
 
@@ -2286,6 +2379,9 @@ def main() -> int:
     if args.only == "dense-loop":
         phase_dense_loop(args.seed)
         return 0
+    if args.only == "lex":
+        phase_lex()
+        return 0
     k1_rows = phase_kernels(args.seed)
     k2_rows = phase_revised(args.seed)
     phase_crossover(args.seed)
@@ -2310,7 +2406,7 @@ def main() -> int:
         k4_rows, plain_fronts = phase_dp_kernel(tmp)
         dp_main = phase_dp(tmp, plain_fronts)
     k5_rows = phase_dense_loop(args.seed)
-    _, lex_k5 = phase_lex()
+    _, k6_entry, lex_k6 = phase_lex()
     phase_mesh()
     phase_mesh_devices()
     _, xla_k5 = phase_xla(args.seed, k1_rows, k2_rows, {"cli": cli, "real": [real]})
@@ -2388,8 +2484,11 @@ def main() -> int:
             entry("bb_fragment", "moip_aira_tpu/solver/pallas_bb.py:211",
                   k3_rows, frag, "2AP20"),
             dp_entry(k4_rows, dp_main),
-            # K5's main paths: the lex backend's and the XLA engine's fronts
-            k5_entry(k5_rows, lex_k5 + xla_k5),
+            # K5's main path: the XLA engine's fronts (the lex backend's
+            # LPs run inside K6)
+            k5_entry(k5_rows, xla_k5),
+            # K6's: the lex backend's fronts, one launch a batch
+            {**k6_entry, "launches": lex_k6},
         ]
     })
     emit({

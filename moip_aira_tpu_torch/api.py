@@ -54,9 +54,12 @@ class FrontResult:
     #: as [shape, C, P, launches] rows, ``k5_plans``); for
     #: the knapsack front DP, backend "kp_front", kernel "kp_dp" (K4) with
     #: its launches, the expanded items, the table cells and the engine;
-    #: for the lex backend ("jax"), its batches, lanes, fallbacks and the
-    #: steps of its B&B and LP loops with the host syncs they took, and
-    #: ``k5_plans``; under a
+    #: for the lex backend ("jax"), its batches, lanes, fallbacks, host
+    #: syncs, the lanes' B&B nodes and LP steps (``nodes``, ``iters``) and
+    #: the largest lane's of each batch, summed (``path_nodes``,
+    #: ``path_iters``), the lockstep steps of its plain loop on the CPU
+    #: (``bnb_steps``, ``lp_steps``), and K6's launches and them by plan
+    #: (``kernel_launches``, ``k6_plans``); under a
     #: mesh also "mesh": its mode, shape and the mesh scheduler's
     #: exchanged_boxes, carried_boxes and severed
     backend_stats: Optional[dict] = None
@@ -70,9 +73,9 @@ class FrontResult:
         return int(self.points.shape[0])
 
 
-def k5_plans(counters) -> list:
-    """K5's launches summed over ``counters`` (each by (shape, C, P)), as
-    sorted [shape, C, P, launches] rows."""
+def plan_rows(counters) -> list:
+    """K5's or K6's launches summed over ``counters`` (each by (shape, C,
+    P)), as sorted [shape, C, P, launches] rows."""
     total = Counter()
     for counter in counters:
         total.update(counter)
@@ -89,8 +92,11 @@ def backend_stats(be) -> dict:
     ):
         if hasattr(be, key):
             stats[key] = int(getattr(be, key))
-    if hasattr(be, "plan_launches"):  # the lex backend: K5's plans
-        stats["k5_plans"] = k5_plans([be.plan_launches])
+    if hasattr(be, "path_nodes"):  # the lex backend: its lanes' counts, K6
+        for key in ("nodes", "iters", "path_nodes", "path_iters"):
+            stats[key] = int(getattr(be, key))
+        stats["kernel_launches"] = int(be.launches)
+        stats["k6_plans"] = plan_rows([be.plan_launches])
     which = "lp_kernel"
     if getattr(be, "fragments", False):
         which = "frag_kernel"
@@ -121,7 +127,7 @@ def backend_stats(be) -> dict:
             stats["lp_steps"] = sum(int(k.steps) for k in kernels.values())
             stats["host_syncs"] = sum(int(k.syncs) for k in kernels.values())
         if hasattr(first, "plan_launches"):  # the XLA engine: K5's plans
-            stats["k5_plans"] = k5_plans(k.plan_launches for k in kernels.values())
+            stats["k5_plans"] = plan_rows(k.plan_launches for k in kernels.values())
         if hasattr(be, "device_lanes"):
             # lanes and launches per device, keyed str(device)
             stats["device_lanes"] = dict(be.device_lanes)

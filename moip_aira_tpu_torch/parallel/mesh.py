@@ -160,7 +160,10 @@ def make_distributed_round(problem: Problem, mesh: Mesh, batch_per_device: int =
 
       1. splits the subproblem batch over the domains,
       2. runs the lex kernel (solver/lex_torch.py) on every lane, the
-         domains of one device as one batch on it,
+         domains of one device as one batch on it (one launch of K6 on a
+         card; a perm naming an objective outside [0, k) raises first,
+         unless it is already on a card, where K6 marks its lanes
+         ``LEX_BAD_PERM``),
       3. reduces per-objective bound vectors (min and max over the feasible
          lanes of every domain), and
       4. gathers every lane's result and status in ``gather_order``.
@@ -168,13 +171,14 @@ def make_distributed_round(problem: Problem, mesh: Mesh, batch_per_device: int =
     It returns (status (B,) in batch order, all_results (B, k),
     all_status (B,), lo (1, k), hi (1, k)), the last four on the first
     domain's device."""
-    from moip_aira_tpu_torch.solver.lex_torch import make_lex_kernel
+    from moip_aira_tpu_torch.solver.lex_torch import check_perm, make_lex_kernel
 
     groups = by_device(mesh)
     kernels = {dev: make_lex_kernel(problem, device=dev) for dev, _ in groups}
     B = batch_per_device * mesh.size
 
     def step(rhs, perm):
+        check_perm(perm, problem.objcnt)
         rhs_s = shard_batch(mesh, torch.as_tensor(rhs, dtype=torch.float64))
         perm_s = shard_batch(mesh, torch.as_tensor(perm, dtype=torch.int64))
         st: List[torch.Tensor] = [None] * mesh.size

@@ -32,6 +32,7 @@ import functools
 from collections import Counter
 from contextlib import nullcontext
 from dataclasses import dataclass
+from typing import ClassVar
 
 import torch
 
@@ -159,6 +160,9 @@ class DenseLoopPlan:
     "global": "cluster" with the tableau slices in a global scratch), for
     LPs of m rows and nc columns of ``dsize``-byte values."""
 
+    #: the kernel the plan launches, in messages
+    KERNEL: ClassVar[str] = "K5"
+
     m: int
     nc: int
     dsize: int
@@ -197,6 +201,19 @@ class DenseLoopPlan:
         (0 but for the global shape)."""
         return self.C * self.m * self.slices[0].pitch if self.shape == "global" else 0
 
+    def kernel_smem_bytes(self, defines: tuple = ()) -> int:
+        """The kernel's own count of the plan's shared bytes."""
+        return _lib(defines).simplex_dense_smem_bytes(
+            self.dsize, self.code, self.m, self.nc - self.m, self.C, self.P
+        )
+
+    def kernel_clusters(self) -> int:
+        """How many clusters of the plan (blocks, for C = 1) the current
+        card holds at once, or minus the CUDA error."""
+        return _lib().simplex_dense_max_clusters(
+            self.dsize, self.code, self.m, self.nc - self.m, self.C, self.threads, self.P
+        )
+
 
 def packs(m: int, nc: int) -> bool:
     """Whether a warp can run the lane: a row for each of its 32 threads and
@@ -224,40 +241,42 @@ def _dsize(dtype) -> int:
 
 
 def loop_plan_for(m: int, nc: int, dtype, shape: str, C: int, smem_cap: int,
-                  P: int = K5_PACK_LANES) -> DenseLoopPlan:
+                  P: int = K5_PACK_LANES, cls=DenseLoopPlan) -> DenseLoopPlan:
     """K5's launch of the given shape (C blocks a lane for "cluster" and
     "global", P lanes a block for "packed") on a card whose blocks may opt into
-    ``smem_cap`` shared bytes.  A block of the block or cluster shape
+    ``smem_cap`` shared bytes, or K6's (``cls``: the plan's class, which
+    counts its kernel's shared bytes).  A block of the block or cluster shape
     takes a thread for each of its columns and each of its windows of the
     objective's column sums (an item each), ceil(items / K5_MAX_THREADS)
     items a thread, as few threads as spread them evenly.  Raises
     ValueError for a dtype K5 has no build for, an LP the shape cannot
     take, or shared memory that does not fit."""
     dsize = _dsize(dtype)
+    name = cls.KERNEL
     if not (1 <= m <= K5_MAX_ROWS and m <= nc <= K5_MAX_COLUMNS):
-        raise ValueError(f"K5 takes no LP of {m} rows and {nc} columns")
+        raise ValueError(f"{name} takes no LP of {m} rows and {nc} columns")
     cap = smem_cap - STATIC_SMEM_RESERVE
     if shape == "packed":
         if not packs(m, nc) or not 1 <= P <= K5_MAX_PACK or C != 1:
-            raise ValueError(f"K5 packs no LP of {m} rows and {nc} columns, {P} a block")
-        plan = DenseLoopPlan(m, nc, dsize, shape, 1, 32 * P, P)
+            raise ValueError(f"{name} packs no LP of {m} rows and {nc} columns, {P} a block")
+        plan = cls(m, nc, dsize, shape, 1, 32 * P, P)
     elif shape in ("block",) + SPLIT:
         if (shape == "block") != (C == 1) or C > 1 and C not in cluster_sizes(nc):
-            raise ValueError(f"K5's {shape} shape takes no cluster of {C} at {nc} columns")
+            raise ValueError(f"{name}'s {shape} shape takes no cluster of {C} at {nc} columns")
         work = max((s.j1 - s.j0) + (s.w1 - s.w0) for s in (slice_of(nc, C, r) for r in range(C)))
         per = -(-work // K5_MAX_THREADS)
-        plan = DenseLoopPlan(m, nc, dsize, shape, C, max(32, 32 * -(-work // (32 * per))))
+        plan = cls(m, nc, dsize, shape, C, max(32, 32 * -(-work // (32 * per))))
     else:
-        raise ValueError(f"K5 has no shape {shape!r}")
+        raise ValueError(f"{name} has no shape {shape!r}")
     if plan.smem_bytes > cap:
         raise ValueError(
-            f"K5's {plan.layout} for {m} rows and {nc} columns needs "
+            f"{name}'s {plan.layout} for {m} rows and {nc} columns needs "
             f"{plan.smem_bytes} shared bytes, the card gives {cap}"
         )
     return plan
 
 
-def split_plans(m: int, nc: int, dtype, smem_cap: int) -> dict:
+def split_plans(m: int, nc: int, dtype, smem_cap: int, cls=DenseLoopPlan) -> dict:
     """The plans ``dense_loop_plan`` chooses among for an LP no warp runs,
     by C (1: a block): the block plan and each cluster plan whose shared
     memory holds the tableau, or, when none does, each global plan that
@@ -265,20 +284,20 @@ def split_plans(m: int, nc: int, dtype, smem_cap: int) -> dict:
     out = {}
     for shape, C in [("block", 1)] + [("cluster", C) for C in cluster_sizes(nc)]:
         try:
-            out[C] = loop_plan_for(m, nc, dtype, shape, C, smem_cap)
+            out[C] = loop_plan_for(m, nc, dtype, shape, C, smem_cap, cls=cls)
         except ValueError:
             continue
     if not out:
         for C in cluster_sizes(nc):
             try:
-                out[C] = loop_plan_for(m, nc, dtype, "global", C, smem_cap)
+                out[C] = loop_plan_for(m, nc, dtype, "global", C, smem_cap, cls=cls)
             except ValueError:
                 continue
     return out
 
 
 def dense_loop_plan(m: int, nc: int, dtype, lanes: int, smem_cap: int, sms: int,
-                    held) -> DenseLoopPlan:
+                    held, cls=DenseLoopPlan) -> DenseLoopPlan:
     """K5's launch for ``lanes`` LPs of m rows and nc columns in ``dtype``
     on a card of ``sms`` SMs whose blocks may opt into ``smem_cap`` shared
     bytes and which holds ``held[C]`` clusters of C blocks of the plan
@@ -297,21 +316,22 @@ def dense_loop_plan(m: int, nc: int, dtype, lanes: int, smem_cap: int, sms: int,
     * else (no block of a cluster of 8 holds its slice: 2AP50 and larger
       in float64, 2AP60 and larger in float32) ``global`` by the same rule.
 
-    Raises ValueError when no shape fits."""
+    K6 (``cls``) takes the same rule over the plans that fit its own
+    shared bytes.  Raises ValueError when no shape fits."""
     _dsize(dtype)
     if not (1 <= m <= K5_MAX_ROWS and m <= nc <= K5_MAX_COLUMNS):
-        raise ValueError(f"K5 takes no LP of {m} rows and {nc} columns")
+        raise ValueError(f"{cls.KERNEL} takes no LP of {m} rows and {nc} columns")
     lanes = max(lanes, 1)
     if packs(m, nc):
         try:
-            return loop_plan_for(m, nc, dtype, "packed", 1, smem_cap)
+            return loop_plan_for(m, nc, dtype, "packed", 1, smem_cap, cls=cls)
         except ValueError:
             pass
-    plans = split_plans(m, nc, dtype, smem_cap)
+    plans = split_plans(m, nc, dtype, smem_cap, cls)
     if not plans:  # the smallest global plan's refusal, else the block's
         sizes = cluster_sizes(nc)
         loop_plan_for(m, nc, dtype, "global" if sizes else "block", max(sizes, default=1),
-                      smem_cap)
+                      smem_cap, cls=cls)
     fits = sorted(C for C in plans if C > 1)
     if 1 in plans:
         return plans[max([1] + [C for C in fits if lanes <= held.get(C, 0)])]
@@ -320,17 +340,17 @@ def dense_loop_plan(m: int, nc: int, dtype, lanes: int, smem_cap: int, sms: int,
     return plans[min(fits, key=lambda C: (-(-lanes // max(1, held.get(C, 0))), -C))]
 
 
-def plans_that_fit(m: int, nc: int, dtype, smem_cap: int) -> list:
-    """Every plan K5 can launch for the shape: a warp a lane at P = 1, 2,
-    4 and 8; a block; each cluster size that fits, with the tableau in
-    shared and in global memory."""
+def plans_that_fit(m: int, nc: int, dtype, smem_cap: int, cls=DenseLoopPlan) -> list:
+    """Every plan K5 (K6: ``cls``) can launch for the shape: a warp a lane
+    at P = 1, 2, 4 and 8; a block; each cluster size that fits, with the
+    tableau in shared and in global memory."""
     out = []
     for shape, C, P in (
         [("packed", 1, P) for P in (1, 2, 4, 8)]
         + [("block", 1, 1)] + [(shape, C, 1) for shape in SPLIT for C in (2, 4, 8)]
     ):
         try:
-            out.append(loop_plan_for(m, nc, dtype, shape, C, smem_cap, P))
+            out.append(loop_plan_for(m, nc, dtype, shape, C, smem_cap, P, cls))
         except ValueError:
             continue
     return out
@@ -366,42 +386,50 @@ def _lib(defines: tuple = ()) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def device_limits(device: int) -> tuple:
-    """(shared bytes a block may opt into, SMs) of card ``device``."""
+    """(shared bytes a block may opt into, SMs) of card ``device``: the
+    card's, whichever kernel the plan is for."""
     smem, sms = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         err = _lib().simplex_dense_device_limits(ctypes.byref(smem), ctypes.byref(sms))
     if err != 0:
-        raise RuntimeError(f"K5: reading the card's limits failed: CUDA error {err}")
+        raise RuntimeError(f"reading the card's limits failed: CUDA error {err}")
     return smem.value, sms.value
 
 
 @functools.lru_cache(maxsize=None)
 def max_clusters(device: int, plan: DenseLoopPlan) -> int:
     """How many clusters of ``plan`` (blocks, for C = 1) card ``device``
-    holds at once (cudaOccupancyMaxActiveClusters)."""
+    holds at once (cudaOccupancyMaxActiveClusters of the plan's kernel)."""
     with torch.cuda.device(device):
-        got = _lib().simplex_dense_max_clusters(
-            plan.dsize, plan.code, plan.m, plan.nc - plan.m, plan.C, plan.threads, plan.P
-        )
+        got = plan.kernel_clusters()
     if got < 0:
-        raise RuntimeError(f"K5: occupancy of {plan} failed: CUDA error {-got}")
+        raise RuntimeError(f"{plan.KERNEL}: occupancy of {plan} failed: CUDA error {-got}")
     return got
 
 
 @functools.lru_cache(maxsize=None)
-def held(device: int, m: int, nc: int, dtype) -> dict:
+def held(device: int, m: int, nc: int, dtype, cls=DenseLoopPlan) -> dict:
     """Clusters of each size C card ``device`` holds at once under the
-    plan ``split_plans`` gives that C (1: blocks of the block plan)."""
+    plan ``split_plans`` gives that C (1: blocks of the block plan), for
+    K5 or K6 (``cls``)."""
     smem, _ = device_limits(device)
     return {C: max_clusters(device, plan)
-            for C, plan in split_plans(m, nc, dtype, smem).items()}
+            for C, plan in split_plans(m, nc, dtype, smem, cls).items()}
 
 
 @functools.lru_cache(maxsize=4096)
-def _plan(device: int, m: int, nc: int, dtype, lanes: int) -> DenseLoopPlan:
+def plan_on(device: int, m: int, nc: int, dtype, lanes: int, cls=DenseLoopPlan) -> DenseLoopPlan:
+    """``dense_loop_plan`` on card ``device``, for K5 or K6 (``cls``),
+    worked out once per shape, dtype, card and lane count."""
     smem, sms = device_limits(device)
-    h = {} if packs(m, nc) else held(device, m, nc, dtype)
-    return dense_loop_plan(m, nc, dtype, lanes, smem, sms, h)
+    h = {} if packs(m, nc) else held(device, m, nc, dtype, cls)
+    return dense_loop_plan(m, nc, dtype, lanes, smem, sms, h, cls)
+
+
+def device_index(dev: torch.device) -> int:
+    """The ordinal of CUDA device ``dev`` (the current one when it names
+    none)."""
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def loop_plan(W: torch.Tensor, lanes: int) -> DenseLoopPlan:
@@ -409,24 +437,37 @@ def loop_plan(W: torch.Tensor, lanes: int) -> DenseLoopPlan:
     system W on W's card (worked out once per shape, dtype, card and lane
     count)."""
     m, nc = W.shape
-    return _plan(W.device.index or 0, m, nc, W.dtype, int(lanes))
+    return plan_on(device_index(W.device), m, nc, W.dtype, int(lanes))
 
 
 def loop_plans(W: torch.Tensor) -> list:
     """Every plan K5 can launch for the system W on W's card."""
     m, nc = W.shape
-    return plans_that_fit(m, nc, W.dtype, device_limits(W.device.index or 0)[0])
+    return plans_that_fit(m, nc, W.dtype, device_limits(device_index(W.device))[0])
 
 
 @functools.lru_cache(maxsize=None)
-def _check_bytes(plan: DenseLoopPlan, defines: tuple) -> None:
+def check_bytes(plan: DenseLoopPlan, defines: tuple = ()) -> None:
     """The kernel's own count of the plan's shared bytes against the
     plan's, once per plan and build."""
-    kb = _lib(defines).simplex_dense_smem_bytes(
-        plan.dsize, plan.code, plan.m, plan.nc - plan.m, plan.C, plan.P
-    )
+    kb = plan.kernel_smem_bytes(defines)
     if kb != plan.smem_bytes:
-        raise RuntimeError(f"K5 counts {kb} shared bytes for {plan}, the plan {plan.smem_bytes}")
+        raise RuntimeError(
+            f"{plan.KERNEL} counts {kb} shared bytes for {plan}, the plan {plan.smem_bytes}"
+        )
+
+
+def check_tensor(name: str, t: torch.Tensor, dev, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``shape`` and ``dtype``
+    on ``dev``."""
+    if t.device != dev:
+        raise ValueError(f"{name} lies on {t.device}, the kernel on {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def check_lanes(W: torch.Tensor, c, lo, hi, active) -> None:
@@ -435,21 +476,11 @@ def check_lanes(W: torch.Tensor, c, lo, hi, active) -> None:
     nc = W.shape[1]
     B = c.shape[0] if c.dim() else -1
     for name, t in (("c", c), ("lo", lo), ("hi", hi)):
-        if t.device != W.device:
-            raise ValueError(f"{name} lies on {t.device}, the solver on {W.device}")
-        if t.dtype != W.dtype:
-            raise TypeError(f"{name} must be {W.dtype}, got {t.dtype}")
-        if tuple(t.shape) != (B, nc):
-            raise ValueError(f"{name} must have shape {(B, nc)}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        check_tensor(name, t, W.device, W.dtype, (B, nc))
     if active is not None:
-        if active.device != W.device:
-            raise ValueError(f"active lies on {active.device}, the solver on {W.device}")
-        if active.dtype != torch.bool or tuple(active.shape) != (B,):
+        if active.dtype != torch.bool:
             raise ValueError(f"active must be a bool tensor of shape {(B,)}")
-        if not active.is_contiguous():
-            raise ValueError("active must be contiguous")
+        check_tensor("active", active, W.device, torch.bool, (B,))
 
 
 def launch_dense_loop(
@@ -489,13 +520,13 @@ def launch_dense_loop(
     if (plan.m, plan.nc, plan.dsize) != (m, nc, _dsize(dt)):
         raise ValueError(f"{plan} is not a plan for {m} x {nc} {dt} lanes")
     defines = tuple(defines)
-    _check_bytes(plan, defines)
+    check_bytes(plan, defines)
     status, obj, x, basis, at_upper, iters = out
     scratch = (torch.empty(B * plan.scratch_values, dtype=dt, device=dev)
                if plan.scratch_values else None)
     # the launch goes to the current device: W's, switched to only when it
     # is not
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    index = device_index(dev)
     with torch.cuda.device(index) if index != torch.cuda.current_device() else nullcontext():
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib(defines).simplex_dense_launch(

@@ -4,22 +4,25 @@
 One call solves a batch of CLMOIP subproblems on one device: for each lane,
 a loop over the objective permutation runs a depth-first branch and bound
 (a fixed-capacity node stack) whose LP relaxations are the f64 dense simplex
-of solver/simplex_dense.py on the unscaled system ``[A; C | -I]``: on a
-card one launch of K5 (csrc/simplex_dense.cu) a B&B step, on the CPU its
-plain loop.  The B&B loop itself is plain PyTorch on either.
+of solver/simplex_dense.py on the unscaled system ``[A; C | -I]``.
 
-The reference is a ``vmap`` of a ``lax.scan`` over stages whose body is a
-``lax.while_loop`` over B&B nodes, each node a ``lax.while_loop`` over
-pivots.  Here the batch is explicit: each stage runs its B&B loop until no
-lane's condition holds, and a lane whose condition is false, or whose LP is
-done, is frozen (every update is masked by it), so each lane computes what
-the reference's lane computes.  Lanes that overflow the node stack or hit an
-iteration limit report ``LEX_RESOURCE``, and ``TorchLexBackend`` re-solves
-them with the exact NumPy backend, counting each one.
+The reference is one XLA program: a ``vmap`` of a ``lax.scan`` over stages
+whose body is a ``lax.while_loop`` over B&B nodes, each node a
+``lax.while_loop`` over pivots.  On a card the port's is one launch of K6
+(csrc/lex_bnb.cu, through solver/cuda_lex.py): each lane's stages, B&B
+nodes and LPs (K5's loop) in one kernel, with no host read.  On the CPU it
+runs K6's plain version, the loop below, over the batch written out: each
+stage runs its B&B loop until no lane's condition holds, and a lane whose
+condition is false, or whose LP is done, is frozen (every update is masked
+by it), so each lane computes what the reference's lane computes, alone or
+in any batch.  Lanes that overflow the node stack or hit an iteration limit
+report ``LEX_RESOURCE``, and ``TorchLexBackend`` re-solves them with the
+exact NumPy backend, counting each one.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import List
 
 import numpy as np
@@ -28,14 +31,16 @@ import torch
 from moip_aira_tpu_torch.device import resolve_device
 from moip_aira_tpu_torch.problem import Problem
 from moip_aira_tpu_torch.sense import Sense
+from moip_aira_tpu_torch.solver.cuda_lex import launch_lex_bnb
 from moip_aira_tpu_torch.solver.lex import LexOutcome, LexRequest, NumpyLexBackend
-from moip_aira_tpu_torch.solver.simplex_dense import make_lp_solver
+from moip_aira_tpu_torch.solver.simplex_dense import PROGRESS_TOL, make_lp_solver
+from moip_aira_tpu_torch.solver.simplex_np import COST_TOL, FEAS_TOL, PIVOT_TOL, STALL_LIMIT
 from moip_aira_tpu_torch.solver.simplex_torch import ITER_LIMIT, OPTIMAL, UNBOUNDED
 from moip_aira_tpu_torch.solver.status import SolveStatus
 
 __all__ = [
-    "LEX_INFEASIBLE", "LEX_OPTIMAL", "LEX_RESOURCE", "LexKernel",
-    "TorchLexBackend", "make_lex_kernel",
+    "LEX_BAD_PERM", "LEX_INFEASIBLE", "LEX_OPTIMAL", "LEX_RESOURCE", "LexKernel",
+    "TorchLexBackend", "check_perm", "make_lex_kernel",
 ]
 
 INT_TOL = 1e-6
@@ -44,6 +49,20 @@ INT_TOL = 1e-6
 LEX_OPTIMAL = 0
 LEX_INFEASIBLE = 1
 LEX_RESOURCE = 3  # node stack overflow / iteration limit -> host fallback
+# K6 only: a lane whose perm names an objective outside [0, k) runs no
+# stage (the plain version raises before it runs)
+LEX_BAD_PERM = 4
+
+
+def check_perm(perm, k: int) -> None:
+    """Raise ValueError unless every objective ``perm`` names lies in [0,
+    k); a tensor on a card is left to K6, which reads it without a host
+    wait and gives such a lane ``LEX_BAD_PERM``."""
+    if torch.is_tensor(perm) and perm.is_cuda:
+        return
+    order = torch.as_tensor(perm)
+    if order.numel() and not (0 <= int(order.min()) and int(order.max()) < k):
+        raise ValueError(f"perm holds objectives outside [0, {k})")
 
 
 def _ceil_tol(v):
@@ -52,12 +71,26 @@ def _ceil_tol(v):
 
 class LexKernel:
     """``fn(rhs (B, k) f64, perm (B, k) int) -> (status (B,) int32,
-    results (B, k) int64, ips (B,) int32)``, tensors on ``device``.
+    results (B, k) int64, ips (B,) int32)``, tensors on ``device``: on a
+    CUDA device one launch of K6 and no host read, on the CPU its plain
+    version.  On the card a lane whose perm (a tensor already there) names
+    an objective outside [0, k) gets ``LEX_BAD_PERM``; elsewhere such a
+    perm raises ValueError.
 
-    Counters: ``bnb_steps`` (steps of the B&B loops, one node of every
-    running lane), ``lp_steps`` (steps of the LP loops, one pivot of every
-    running lane; the same on the card and on the CPU) and ``host_syncs``
-    (the host reading a loop condition, or K5's step count once a call)."""
+    Counters: ``launches`` (K6's) and ``plan_launches`` (them by the plan's
+    (shape, C, P)); ``lane_nodes`` and ``lane_iters``, each lane's B&B nodes
+    and LP steps over all its stages in the last call (on its device; K6 is
+    held to the plain version's lane by lane), ``nodes`` and ``iters``
+    their sums over the calls, ``path_nodes`` and ``path_iters`` the
+    largest lane's of each call, summed (the critical path); ``host_syncs``,
+    the host reading a loop condition (0 on the card, where the caller's
+    copy of the results is the one wait).  On the card the per-lane counts
+    of a call are read once it has finished (without waiting, at the next
+    call) or when a counter is read.  Only the plain loop has the lockstep
+    counters ``bnb_steps`` (steps of the B&B loops, one node of every
+    running lane) and ``lp_steps`` (steps of the LP loops, one pivot of
+    every running lane), and ``lane_pivots``, each lane's pivots over the
+    last call; on the card they are no attributes."""
 
     def __init__(
         self,
@@ -76,8 +109,12 @@ class LexKernel:
         self.maxn = max_nodes_stack
         self.max_bnb_nodes = max_bnb_nodes
         A_full = np.vstack([p.A, p.C])
-        W = np.hstack([A_full, -np.eye(self.m)])
-        self.lp = make_lp_solver(torch.as_tensor(W, dtype=f64, device=dev), lp_max_iters)
+        #: the LPs' system [A; C | -I], on the device
+        self.W = torch.as_tensor(np.hstack([A_full, -np.eye(self.m)]), dtype=f64, device=dev)
+        self.lp_max_iters = lp_max_iters
+        #: the plain loop's LP solver (the CPU only; K6 runs K5's loop with
+        #: the same defaults)
+        self.lp = None if dev.type == "cuda" else make_lp_solver(self.W, lp_max_iters)
 
         def t(a, dtype=f64):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -98,26 +135,83 @@ class LexKernel:
             ],
             torch.bool,
         )
-        self.bnb_steps = 0
+        self._bnb_steps = 0
         self._syncs = 0
+        self.launches = 0
+        self.plan_launches: Counter = Counter()
+        self.lane_nodes = self.lane_iters = None
+        self._pivots = None
+        self._totals = [0, 0, 0, 0]  # nodes, iters, path nodes, path iters
+        self._unread = []  # card calls whose counts are not in _totals yet
+
+    def _plain_only(self, name: str):
+        if self.lp is None:
+            raise AttributeError(f"{name}: K6 runs no lockstep loop")
+
+    @property
+    def bnb_steps(self) -> int:
+        self._plain_only("bnb_steps")
+        return self._bnb_steps
 
     @property
     def lp_steps(self) -> int:
+        self._plain_only("lp_steps")
         return self.lp.steps
 
     @property
-    def host_syncs(self) -> int:
-        return self._syncs + self.lp.syncs
+    def lane_pivots(self):
+        self._plain_only("lane_pivots")
+        return self._pivots
 
     @property
-    def plan_launches(self):
-        return self.lp.plan_launches
+    def host_syncs(self) -> int:
+        return 0 if self.lp is None else self._syncs + self.lp.syncs
+
+    def _count(self, nodes, iters) -> None:
+        if nodes.numel():
+            t = self._totals
+            t[0] += int(nodes.sum())
+            t[1] += int(iters.sum())
+            t[2] += int(nodes.max())
+            t[3] += int(iters.max())
+
+    def _read(self, wait: bool) -> None:
+        """Add the unread card calls' per-lane counts to the totals: every
+        one (``wait``), or those whose launch has finished."""
+        left = []
+        for done, nodes, iters in self._unread:
+            if wait or done.query():
+                self._count(nodes.cpu(), iters.cpu())
+            else:
+                left.append((done, nodes, iters))
+        self._unread = left
+
+    def _total(self, i: int) -> int:
+        self._read(wait=True)
+        return self._totals[i]
+
+    @property
+    def nodes(self) -> int:
+        return self._total(0)
+
+    @property
+    def iters(self) -> int:
+        return self._total(1)
+
+    @property
+    def path_nodes(self) -> int:
+        return self._total(2)
+
+    @property
+    def path_iters(self) -> int:
+        return self._total(3)
 
     def _bnb(self, c_struct, obj_int, srhs, active):
         """Min ``c_struct @ x`` s.t. the structural rows, the objective rows
         bounded by ``srhs`` and integrality, for every lane.  Returns
-        (found, resource, best obj); ``active=False`` lanes start with an
-        empty stack and take no step."""
+        (found, resource, best obj, nodes, LP steps, pivots) a lane;
+        ``active=False`` lanes start with an empty stack and take no
+        step."""
         dev = self.device
         B = c_struct.shape[0]
         n, m, k, MAXN = self.n, self.m, self.k, self.maxn
@@ -143,6 +237,8 @@ class LexKernel:
         sp = active.to(torch.int64)
         best = torch.full((B,), float("inf"), dtype=torch.float64, device=dev)
         nodes = torch.zeros(B, dtype=torch.int64, device=dev)
+        iters = torch.zeros(B, dtype=torch.int64, device=dev)
+        pivots = torch.zeros(B, dtype=torch.int64, device=dev)
         resource = torch.zeros(B, dtype=torch.bool, device=dev)
         unbounded = torch.zeros_like(resource)
 
@@ -151,7 +247,7 @@ class LexKernel:
             self._syncs += 1
             if not bool(go.any()):
                 break
-            self.bnb_steps += 1
+            self._bnb_steps += 1
             sp1 = sp - 1
             top = sp1.clamp(min=0)
             nlo = stack_lo[lanes, top]
@@ -160,6 +256,8 @@ class LexKernel:
                 c_full, torch.cat([nlo, lo_log], 1), torch.cat([nhi, hi_log], 1),
                 active=go,
             )
+            iters += torch.where(go, out.iters, 0)
+            pivots += torch.where(go, self.lp.pivots, 0)
             nodes1 = nodes + 1
             res1 = resource | (nodes1 > self.max_bnb_nodes) | (out.status == ITER_LIMIT)
             unb1 = unbounded | (out.status == UNBOUNDED)
@@ -198,12 +296,39 @@ class LexKernel:
             unbounded = torch.where(go, unb1, unbounded)
 
         found = torch.isfinite(best) & ~resource
-        return found, resource, best
+        return found, resource, best, nodes, iters, pivots
 
     def __call__(self, rhs, perm):
         dev = self.device
-        rhs = torch.as_tensor(rhs, dtype=torch.float64, device=dev)
-        perm = torch.as_tensor(perm, dtype=torch.int64, device=dev)
+        check_perm(perm, self.k)
+        rhs = torch.as_tensor(rhs, dtype=torch.float64, device=dev).contiguous()
+        perm = torch.as_tensor(perm, dtype=torch.int64, device=dev).contiguous()
+        if rhs.dim() != 2 or rhs.shape[1] != self.k or perm.shape != rhs.shape:
+            raise ValueError(f"rhs and perm must have shape (B, {self.k})")
+        if dev.type == "cuda":
+            return self._launch(rhs, perm)
+        return self._plain(rhs, perm)
+
+    def _launch(self, rhs, perm):
+        """K6 on the batch: one launch, its outputs left on the card."""
+        self._read(wait=False)
+        out = launch_lex_bnb(
+            self.W, rhs, perm, self.C, self.lb, self.ub, self.row_lb, self.row_ub,
+            self.is_int, self.obj_integral, self.is_min, self.maxn, self.max_bnb_nodes,
+            self.lp_max_iters, FEAS_TOL, COST_TOL, PIVOT_TOL, PROGRESS_TOL, STALL_LIMIT,
+            plan_launches=self.plan_launches,
+        )
+        self.launches += 1
+        self.lane_nodes, self.lane_iters = out.nodes, out.iters
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        self._unread.append((done, out.nodes, out.iters))
+        return out.status, out.results, out.ips
+
+    def _plain(self, rhs, perm):
+        """K6's plain version: the batch's stages, each a B&B loop over
+        every lane at once."""
+        dev = self.device
         B, k = rhs.shape
         sgn = 1.0 if self.is_min else -1.0
         srhs = rhs.clone()
@@ -211,12 +336,14 @@ class LexKernel:
         resource = torch.zeros_like(alive)
         result = torch.zeros(B, k, dtype=torch.int64, device=dev)
         ips = torch.zeros(B, dtype=torch.int32, device=dev)
+        counts = torch.zeros(3, B, dtype=torch.int64, device=dev)  # nodes, iters, pivots
         for s in range(k):
             j = perm[:, s]
             active = alive & ~resource
-            found, res_flag, obj = self._bnb(
+            found, res_flag, obj, *stage_counts = self._bnb(
                 sgn * self.C[j], self.obj_integral[j], srhs, active
             )
+            counts += torch.stack(stage_counts)
             val = torch.round(obj if self.is_min else -obj)
             new_alive = alive & found & active
             jc = j[:, None]
@@ -230,6 +357,8 @@ class LexKernel:
         status = torch.where(
             resource, LEX_RESOURCE, torch.where(alive, LEX_OPTIMAL, LEX_INFEASIBLE)
         ).to(torch.int32)
+        self.lane_nodes, self.lane_iters, self._pivots = counts
+        self._count(self.lane_nodes, self.lane_iters)
         return status, result, ips
 
 
@@ -245,6 +374,13 @@ def make_lex_kernel(
     return LexKernel(problem, max_nodes_stack, max_bnb_nodes, lp_max_iters, device)
 
 
+#: the LexKernel counters TorchLexBackend reports as its own
+_KERNEL_COUNTERS = frozenset((
+    "launches", "plan_launches", "nodes", "iters", "path_nodes", "path_iters",
+    "bnb_steps", "lp_steps",
+))
+
+
 class TorchLexBackend:
     """The lex kernel as a backend, with the exact host fallback for
     resource-limited lanes.
@@ -252,10 +388,11 @@ class TorchLexBackend:
     Requests go to the kernel ``batch_width`` at a time, and only the filled
     lanes launch: nothing compiles per shape, so the reference's padding to
     one static width has nothing to save.  Counters: ``device_batches``,
-    ``lanes``, ``fallback_count`` (lanes re-solved by NumpyLexBackend) and
-    the kernel's ``bnb_steps``, ``lp_steps`` and ``host_syncs`` (with the
-    one result copy of each batch), and its LP solver's ``plan_launches``
-    (K5's launches by plan)."""
+    ``lanes``, ``fallback_count`` (lanes re-solved by NumpyLexBackend), the
+    kernel's ``launches`` and ``plan_launches`` (K6's), ``nodes``,
+    ``iters``, ``path_nodes`` and ``path_iters``, the plain loop's
+    ``bnb_steps`` and ``lp_steps`` (on the CPU only), and ``host_syncs``
+    (the kernel's, with the one result copy of each batch)."""
 
     name = "jax"
 
@@ -269,21 +406,15 @@ class TorchLexBackend:
         self.lanes = 0
         self.fallback_count = 0
 
-    @property
-    def bnb_steps(self) -> int:
-        return self.kernel.bnb_steps
-
-    @property
-    def lp_steps(self) -> int:
-        return self.kernel.lp_steps
+    def __getattr__(self, name):
+        # the kernel's counters, read through
+        if name in _KERNEL_COUNTERS:
+            return getattr(self.kernel, name)
+        raise AttributeError(name)
 
     @property
     def host_syncs(self) -> int:
         return self.kernel.host_syncs + self.device_batches
-
-    @property
-    def plan_launches(self):
-        return self.kernel.plan_launches
 
     def lex_solve_batch(self, reqs: List[LexRequest]) -> List[LexOutcome]:
         out: List[LexOutcome] = []

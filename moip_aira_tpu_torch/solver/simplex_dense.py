@@ -16,7 +16,8 @@ batch: every step computes the pivot of every lane and keeps it only where
 the lane is still running, and the host reads the loop condition after
 each step.  On a CUDA device the whole loop is K5 (csrc/simplex_dense.cu,
 launched by solver/cuda_dense.py), one launch a call; this loop is its
-plain version.
+plain version.  On the card the lex backend runs the same loop inside K6
+(csrc/lex_bnb.cu), one lane at every node of its branch and bound.
 
 Every sum follows XLA's CPU code for the reference, in float32 and float64
 alike (``xla_sum``, ``xla_dot``): term by term up to 32 terms, longer axes
@@ -61,6 +62,10 @@ from moip_aira_tpu_torch.solver.simplex_torch import (
     LPOutcome,
 )
 
+#: the least objective change a step counts as progress (simplex_jax's
+#: default): stall_limit steps with less turn pricing to Bland's rule
+PROGRESS_TOL = 1e-12
+
 __all__ = ["DenseLPSolver", "LPOutcome", "make_lp_solver"]
 
 
@@ -97,7 +102,7 @@ class DenseLPSolver:
         feas_tol: float = FEAS_TOL,
         cost_tol: float = COST_TOL,
         pivot_tol: float = PIVOT_TOL,
-        progress_tol: float = 1e-12,
+        progress_tol: float = PROGRESS_TOL,
         stall_limit: int = STALL_LIMIT,
     ):
         self.W = W.contiguous()
@@ -402,7 +407,7 @@ def make_lp_solver(
     feas_tol: float = FEAS_TOL,
     cost_tol: float = COST_TOL,
     pivot_tol: float = PIVOT_TOL,
-    progress_tol: float = 1e-12,
+    progress_tol: float = PROGRESS_TOL,
     stall_limit: int = STALL_LIMIT,
 ) -> DenseLPSolver:
     """The LP solver over the static system matrix W = [A | -I], working in

@@ -157,6 +157,7 @@ def test_port_imports_nothing_of_the_jax_package():
     for root, _dirs, names in os.walk(os.path.join(REPO, "moip_aira_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
+    assert os.path.join(REPO, "moip_aira_tpu_torch", "solver", "cuda_lex.py") in files
     for path in files:
         bad = sorted(
             n for n in imported_modules(path)

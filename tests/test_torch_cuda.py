@@ -1,7 +1,7 @@
 """K1, K2, K3, K4 and K5, the CUDA kernels, against their plain PyTorch
-versions on the card; the lex backend's kernel (plain PyTorch B&B, K5 for
-its LPs on the card) and the wave's XLA engine (K5) against the same calls
-on the CPU, and the mesh of the visible cards.
+versions on the card; the lex backend's kernel (K6, its whole batch in one
+launch) and the wave's XLA engine (K5) against the same calls on the CPU,
+and the mesh of the visible cards.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no jax, so on a machine with a card and without jax it runs alone:
@@ -601,28 +601,139 @@ def lex_case(name, lanes, seed):
     return p, rhs, perm
 
 
+def lex_outputs(kern, out):
+    """A lex kernel call's status, results and IPs, then each lane's nodes
+    and LP steps, as numpy arrays."""
+    return [t.cpu().numpy() for t in out] + [
+        kern.lane_nodes.cpu().numpy(), kern.lane_iters.cpu().numpy()
+    ]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,lanes", [("G2AP05", 32), ("G3AP05", 32), ("G3KP10", 5)])
-def test_lex_kernel_on_the_card_equals_the_cpu(cuda_device, name, lanes):
-    """The lex kernel (plain PyTorch B&B in f64; on the card each B&B
-    step's LPs are one launch of K5) gives the CPU's statuses, results and
-    IPs and the CPU's LP and B&B steps, twice in a row, and its results
-    stay on the card."""
-    from moip_aira_tpu_torch.solver.lex_torch import make_lex_kernel
+@pytest.mark.parametrize(
+    "name,lanes,max_nodes_stack",
+    [("G2AP05", 32, 160), ("G3AP05", 32, 160), ("G3KP10", 5, 160), ("G3KP10", 32, 4)],
+    ids=["G2AP05", "G3AP05", "G3KP10", "G3KP10-stack4"],
+)
+def test_lex_kernel_on_the_card_equals_the_cpu(cuda_device, name, lanes, max_nodes_stack):
+    """The lex kernel on the card is one launch of K6 a call and no K5
+    launch: twice in a row it gives the CPU's statuses, results, IPs and
+    each lane's nodes and LP steps (the stack of 4: lanes that overflow
+    it), its results stay on the card, and its counters are the CPU's sums
+    with no lockstep step and no host read."""
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
+    from moip_aira_tpu_torch.solver.lex_torch import LEX_RESOURCE, make_lex_kernel
 
     p, rhs, perm = lex_case(name, lanes, seed=3)
-    cpu = make_lex_kernel(p, device="cpu")
-    want = [t.numpy() for t in cpu(rhs, perm)]
-    kern = make_lex_kernel(p, device=cuda_device)
+    cpu = make_lex_kernel(p, max_nodes_stack=max_nodes_stack, device="cpu")
+    want = lex_outputs(cpu, cpu(rhs, perm))
+    kern = make_lex_kernel(p, max_nodes_stack=max_nodes_stack, device=cuda_device)
+    k5, k6 = LAUNCHES["simplex_dense"], LAUNCHES["lex_bnb"]
     for _ in range(2):
         out = kern(rhs, perm)
         assert all(t.is_cuda for t in out)
-        for a, b in zip(out, want):
-            assert np.array_equal(a.cpu().numpy(), b)
-    assert kern.lp.W.is_cuda and kern.lp_steps == 2 * cpu.lp_steps > 0
-    assert kern.bnb_steps == 2 * cpu.bnb_steps
-    # one launch a B&B step, and no plain LP step on the card
-    assert kern.lp.launches == kern.bnb_steps and kern.lp.syncs == kern.bnb_steps
+        for a, b in zip(lex_outputs(kern, out), want):
+            assert np.array_equal(a, b)
+    assert kern.launches == LAUNCHES["lex_bnb"] - k6 == 2
+    assert LAUNCHES["simplex_dense"] == k5 and kern.lp is None
+    assert sum(kern.plan_launches.values()) == 2
+    assert kern.host_syncs == 0
+    assert not any(hasattr(kern, a) for a in ("bnb_steps", "lp_steps", "lane_pivots"))
+    assert (kern.nodes, kern.iters) == (2 * cpu.nodes, 2 * cpu.iters)
+    assert (kern.path_nodes, kern.path_iters) == (2 * cpu.path_nodes, 2 * cpu.path_iters)
+    assert ((want[0] == LEX_RESOURCE).any()) == (max_nodes_stack == 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,lanes", [("G2AP05", 12), ("G3KP10", 6), ("2AP20", 8), ("2AP40", 2)])
+def test_lex_kernel_every_plan_equals_the_cpu(cuda_device, name, lanes):
+    """K6 forced into every plan that fits (``cuda_lex.lex_plans``: a warp a
+    lane at P = 1, 2, 4 and 8, a block, clusters of 2 and 4 with the
+    tableau in shared and in global memory, at 2AP40 global clusters of 2,
+    4 and 8): every output of every lane, counts included, equal to the
+    CPU's, each plan one launch; a plan that fits K5 but not K6 raises
+    before launching."""
+    from dataclasses import replace
+
+    from moip_aira_tpu_torch.solver import cuda_lex
+    from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
+    from moip_aira_tpu_torch.solver.lex_torch import make_lex_kernel
+
+    p, rhs, perm = lex_case(name, lanes, seed=5)
+    cpu = make_lex_kernel(p, device="cpu")
+    want = lex_outputs(cpu, cpu(rhs, perm))
+    kern = make_lex_kernel(p, device=cuda_device)
+    args = [torch.as_tensor(rhs, device=cuda_device), torch.as_tensor(perm, device=cuda_device)]
+    plans = cuda_lex.lex_plans(kern.W)
+    assert {q.shape for q in plans} == {
+        "2AP20": {"block", "cluster", "global"}, "2AP40": {"global"},
+    }.get(name, {"packed", "block"})
+    if name == "2AP40":
+        assert {q.C for q in plans} == {2, 4, 8}
+
+    def launch(plan):
+        cpu_lp = cpu.lp  # the plain loop's LP solver: K6 runs its defaults
+        return cuda_lex.launch_lex_bnb(
+            kern.W, *args, kern.C, kern.lb, kern.ub, kern.row_lb, kern.row_ub, kern.is_int,
+            kern.obj_integral, kern.is_min, kern.maxn, kern.max_bnb_nodes, cpu_lp.max_iters,
+            cpu_lp.feas_tol, cpu_lp.cost_tol, cpu_lp.pivot_tol, cpu_lp.progress_tol,
+            cpu_lp.stall_limit, plan=plan,
+        )
+
+    for plan in plans:
+        k6 = LAUNCHES["lex_bnb"]
+        out = launch(plan)
+        torch.cuda.synchronize()
+        got = [t.cpu().numpy() for t in out]
+        for a, b, f in zip(got, want, out._fields):
+            assert np.array_equal(a, b), (plan, f)
+        assert LAUNCHES["lex_bnb"] - k6 == 1
+    if name == "2AP40":
+        k6 = LAUNCHES["lex_bnb"]
+        with pytest.raises(RuntimeError):  # K5's pick, 181,792 bytes, and K6's rows
+            launch(replace(plans[-1], shape="cluster"))
+        assert LAUNCHES["lex_bnb"] == k6
+
+
+@pytest.mark.cuda
+def test_lex_kernel_on_the_card_refuses_a_bad_perm_lane_by_lane(cuda_device):
+    """A perm already on the card that names an objective outside [0, k)
+    is not read on the host: K6 gives each such lane ``LEX_BAD_PERM``, no
+    IP, node or LP step and zero results, in every plan, and every other
+    lane what the CPU gives it; no read goes past the objectives."""
+    from moip_aira_tpu_torch.solver import cuda_lex
+    from moip_aira_tpu_torch.solver.lex_torch import LEX_BAD_PERM, make_lex_kernel
+
+    for name in ("G3AP05", "2AP20"):
+        p, rhs, perm = lex_case(name, 6, seed=7)
+        k = p.objcnt
+        bad = perm.copy()
+        bad[1, 0], bad[4, k - 1] = k, -1
+        ok = np.array([0, 2, 3, 5])
+        cpu = make_lex_kernel(p, device="cpu")
+        want = lex_outputs(cpu, cpu(rhs[ok], perm[ok]))
+        kern = make_lex_kernel(p, device=cuda_device)
+        out = kern(rhs, torch.as_tensor(bad, device=cuda_device))
+        got = lex_outputs(kern, out)
+        for g, w in zip(got, want):
+            assert np.array_equal(g[ok], w)
+        for lane in (1, 4):
+            assert got[0][lane] == LEX_BAD_PERM
+            assert got[2][lane] == got[3][lane] == got[4][lane] == 0
+            assert not got[1][lane].any()
+        assert kern.launches == 1
+        for plan in cuda_lex.lex_plans(kern.W):
+            o = cuda_lex.launch_lex_bnb(
+                kern.W, torch.as_tensor(rhs, device=cuda_device),
+                torch.as_tensor(bad, device=cuda_device), kern.C, kern.lb, kern.ub,
+                kern.row_lb, kern.row_ub, kern.is_int, kern.obj_integral, kern.is_min,
+                kern.maxn, kern.max_bnb_nodes, cpu.lp.max_iters, cpu.lp.feas_tol,
+                cpu.lp.cost_tol, cpu.lp.pivot_tol, cpu.lp.progress_tol, cpu.lp.stall_limit,
+                plan=plan,
+            )
+            torch.cuda.synchronize()
+            assert np.array_equal(o.status.cpu().numpy(), got[0]), plan
+            assert np.array_equal(o.nodes.cpu().numpy(), got[3]), plan
 
 
 @pytest.mark.cuda
@@ -734,8 +845,8 @@ def test_wave_over_a_mesh_of_the_card_and_the_host(cuda_device, fragments):
 @pytest.mark.cuda
 def test_distributed_round_over_two_cards_equals_one_card(two_cards):
     """The lex kernel's distributed round with a domain on each card (a lex
-    kernel, and its K5 launches, on each) gives the round of the same mesh
-    on one card."""
+    kernel, and its K6 launch, on each) gives the round of the same mesh on
+    one card."""
     from moip_aira_tpu_torch.parallel.mesh import make_distributed_round, make_mesh
 
     p = read_problem(os.path.join(EX, "G2AP05.lp"))

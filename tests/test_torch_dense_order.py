@@ -387,15 +387,21 @@ def test_wrapper_refuses_before_any_launch(no_library):
 
 def test_backend_stats_count_k5_launches_by_plan():
     """backend_stats carries K5's launches by (shape, C, P) as sorted
-    [shape, C, P, launches] rows: the lex backend's own counter, and the
-    XLA engine's summed over its devices' wrappers; a CPU run has none."""
+    [shape, C, P, launches] rows: the XLA engine's summed over its devices'
+    wrappers (and the lex backend's K6 launches the same way); a CPU run has
+    none."""
     from collections import Counter
     from types import SimpleNamespace
 
     from moip_aira_tpu_torch.api import backend_stats
 
-    lex = SimpleNamespace(name="jax", plan_launches=Counter({("packed", 1, 4): 3}))
-    assert backend_stats(lex)["k5_plans"] == [["packed", 1, 4, 3]]
+    lex = SimpleNamespace(
+        name="jax", launches=3, plan_launches=Counter({("packed", 1, 4): 3}),
+        nodes=9, iters=90, path_nodes=3, path_iters=30,
+    )
+    st = backend_stats(lex)
+    assert st["k6_plans"] == [["packed", 1, 4, 3]] and "k5_plans" not in st
+    assert (st["kernel_launches"], st["path_iters"]) == (3, 30)
     kernels = {
         dev: SimpleNamespace(kernel="xla", launches=k, steps=0, syncs=0, plan_launches=plans)
         for dev, k, plans in (
@@ -418,6 +424,7 @@ def test_new_files_import_nothing_of_the_jax_package():
     the files of K5's path and its tools."""
     for rel in (
         "moip_aira_tpu_torch/solver/cuda_dense.py",
+        "moip_aira_tpu_torch/solver/cuda_lex.py",
         "moip_aira_tpu_torch/solver/simplex_dense.py",
         "moip_aira_tpu_torch/solver/xla_lp.py",
         "tools/k5_bench.py",

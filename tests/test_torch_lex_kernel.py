@@ -1,0 +1,251 @@
+"""K6's plain version and its launch plan on the CPU.
+
+K6 (csrc/lex_bnb.cu) runs the lex backend's whole batch on the card, each
+lane's stages and B&B nodes in one launch; its plain version is
+``lex_torch.LexKernel``'s loop on the CPU, which runs every lane of a batch
+at once.  Held here, at small sizes: (a) each lane alone gives what it gives
+in the batch, counts included (the premise K6 rests on: no lane of the
+plain loop reads another); (b) seeded lanes against the JAX package's
+``lex_jax`` (status, results and IPs); (c) K6's shared bytes and plan
+(solver/cuda_lex.py) in pure Python, against K5's; (d) the counters the
+backend reports and the inputs the kernel and its wrapper refuse.  K6
+itself runs on the card only (tests/test_torch_cuda.py)."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moip_aira_tpu.io import read_problem as ref_read_problem
+from moip_aira_tpu.parallel.symgroup import sym_perms
+from moip_aira_tpu.solver import lex_jax
+from moip_aira_tpu_torch.api import solve_front
+from moip_aira_tpu_torch.io import read_problem
+from moip_aira_tpu_torch.sense import Sense
+from moip_aira_tpu_torch.parallel import mesh
+from moip_aira_tpu_torch.solver import cuda_dense, cuda_lex, lex_torch
+
+EX = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
+F64 = torch.float64
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small batched ops: one intra-op thread is faster than a pool on a
+    machine that runs several test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def golden(name):
+    rows = []
+    with open(f"{EX}/{name}.out") as fh:
+        for line in fh:
+            parts = line.split()
+            if parts and all(p.lstrip("-").isdigit() for p in parts):
+                rows.append([int(p) for p in parts])
+    return np.array(rows, dtype=np.float64)
+
+
+def lex_lanes(p, lanes):
+    """tests/test_torch_lex.py's lanes: the initial rhs, the golden points
+    and the golden points tightened by one in every objective, each under
+    the symmetry group's orderings in turn."""
+    name = os.path.splitext(os.path.basename(p.filename))[0]
+    step = -1.0 if p.objsen is Sense.MIN else 1.0
+    points = [p.initial_rhs()]
+    for g in golden(name):
+        points += [g, g + step]
+    perms = sym_perms(p.objcnt)
+    rhs = np.array([points[i % len(points)] for i in range(lanes)])
+    perm = np.array([list(perms[(i // len(points) + i) % len(perms)]) for i in range(lanes)])
+    return rhs, perm
+
+
+def seeded_lanes(p, lanes, seed):
+    """The initial rhs, then golden points moved by -1..1, each under a
+    random ordering (tests/test_torch_cuda.py's lex lanes)."""
+    rng = np.random.default_rng(seed)
+    name = os.path.splitext(os.path.basename(p.filename))[0]
+    gold, k = golden(name), p.objcnt
+    rhs = np.array([
+        p.initial_rhs() if b == 0 else gold[rng.integers(len(gold))] + rng.integers(-1, 2, size=k)
+        for b in range(lanes)
+    ])
+    perm = np.array([rng.permutation(k) for _ in range(lanes)])
+    return rhs, perm
+
+
+@pytest.mark.parametrize(
+    "name,lanes,max_nodes_stack",
+    # G3KP10's lanes take hundreds of nodes each, about 18 ms a node alone
+    [("G2AP05", 32, 160), ("G3AP05", 32, 160), ("G3KP10", 6, 160), ("G3KP10", 32, 4)],
+    ids=["G2AP05", "G3AP05", "G3KP10", "G3KP10-stack4"],
+)
+def test_each_lane_alone_gives_the_batch(name, lanes, max_nodes_stack):
+    """The plain loop called on one lane at a time gives the batch call's
+    status, results, IPs and per-lane nodes and LP steps on every lane."""
+    p = read_problem(f"{EX}/{name}.lp")
+    rhs, perm = lex_lanes(p, lanes)
+    kern = lex_torch.make_lex_kernel(p, max_nodes_stack=max_nodes_stack, device="cpu")
+    batch = [t.clone() for t in kern(rhs, perm)] + [kern.lane_nodes, kern.lane_iters]
+    assert (batch[3] > 0).all() and (batch[4] >= batch[3]).all()
+    for b in range(lanes):
+        one = lex_torch.make_lex_kernel(p, max_nodes_stack=max_nodes_stack, device="cpu")
+        got = list(one(rhs[b : b + 1], perm[b : b + 1])) + [one.lane_nodes, one.lane_iters]
+        for g, w in zip(got, batch):
+            assert torch.equal(g[0], w[b]), b
+    if max_nodes_stack == 4:
+        assert (batch[0] == lex_torch.LEX_RESOURCE).any()
+
+
+@pytest.mark.parametrize("name,lanes", [("G2AP05", 24), ("G3AP05", 24), ("G3KP10", 8)])
+def test_seeded_lanes_match_lex_jax(name, lanes):
+    """Seeded lanes (random orderings, golden points moved by -1..1) through
+    the plain loop and ``lex_jax``: status, results and each lane's IPs
+    equal."""
+    p = read_problem(f"{EX}/{name}.lp")
+    rhs, perm = seeded_lanes(p, lanes, seed=3)
+    ref = lex_jax.make_lex_kernel(ref_read_problem(f"{EX}/{name}.lp"))
+    want = [np.asarray(a) for a in ref(jnp.asarray(rhs), jnp.asarray(perm.astype(np.int32)))]
+    kern = lex_torch.make_lex_kernel(p, device="cpu")
+    got = [t.numpy() for t in kern(rhs, perm)]
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    assert (got[2] > 0).all() and len(set(got[0].tolist())) > 1
+    assert kern.nodes == int(kern.lane_nodes.sum()) and kern.iters == int(kern.lane_iters.sum())
+    assert kern.path_nodes == int(kern.lane_nodes.max())
+    assert kern.path_iters == int(kern.lane_iters.max())
+    assert kern.launches == 0 and not kern.plan_launches
+
+
+#: (m, n) of the shapes K6's plan is held at: rows with the objective rows,
+#: structural columns
+SHAPES = {
+    "G3KP10": (4, 10), "G2AP05": (12, 25), "2AP20": (42, 400),
+    "2AP40": (82, 1600), "2AP60": (122, 3600),
+}
+#: an H100's opt-in shared bytes a block (232,448), and clusters it holds
+CAP = 232448
+HELD = {1: 132, 2: 66, 4: 33, 8: 16}
+
+
+def seg(nbytes):
+    return -(-nbytes // 16) * 16
+
+
+@pytest.mark.parametrize("name", SHAPES)
+def test_lex_plan_counts_its_bytes_on_top_of_k5s(name):
+    """Every K6 plan is a K5 plan with K6's bytes added: per lane the
+    node's rows c, lo, hi and x (in shared memory but for the global
+    shape), the warps' winners (not in the packed shape) and the cluster's
+    (split shapes); K6 fits no plan K5 does not."""
+    m, n = SHAPES[name]
+    nc = n + m
+    k5 = {(q.shape, q.C, q.P): q for q in cuda_dense.plans_that_fit(m, nc, F64, CAP)}
+    k6 = cuda_lex.lex_plans_that_fit(m, n, CAP)
+    assert k6 and all((q.shape, q.C, q.P) in k5 for q in k6)
+    for q in k6:
+        extra = 0 if q.shape == "global" else 3 * seg(8 * nc) + seg(8 * n)
+        if q.shape != "packed":
+            extra += seg(2 * 8 * 8) + seg(8 * 4)
+        if q.shape in ("cluster", "global"):
+            extra += seg(2 * q.C * 8) + seg(q.C * 4)
+        lanes = q.P if q.shape == "packed" else 1
+        assert q.smem_bytes == k5[q.shape, q.C, q.P].smem_bytes + lanes * extra
+        assert q.smem_bytes == cuda_lex.lex_bnb_smem_bytes(q.shape, m, n, q.C, q.P)
+        assert q.smem_bytes <= CAP - 1024
+        assert q.row_values == (q.C * (3 * nc + n) if q.shape == "global" else 0)
+
+
+@pytest.mark.parametrize(
+    "name,lanes,want",
+    [
+        ("G3KP10", 32, ("packed", 1, 4)), ("G2AP05", 32, ("packed", 1, 4)),
+        ("2AP20", 32, ("cluster", 4, 1)), ("2AP20", 128, ("block", 1, 1)),
+        # 2AP40's float64 slice on a cluster of 8 fits K5 (181,792 bytes) but
+        # not with K6's rows: K6 takes global, the C of the fewest rounds
+        ("2AP40", 32, ("global", 4, 1)), ("2AP60", 32, ("global", 4, 1)),
+    ],
+)
+def test_lex_plan_takes_k5s_rule(name, lanes, want):
+    """K6's plan is K5's rule over the plans that fit K6: a warp a lane
+    where K5 packs, a shared-memory plan where one fits, else global."""
+    m, n = SHAPES[name]
+    plan = cuda_lex.lex_plan_for(m, n, lanes, CAP, 132, HELD)
+    assert isinstance(plan, cuda_lex.LexPlan) and plan.dsize == 8
+    assert (plan.shape, plan.C, plan.P) == want
+    k5 = cuda_dense.dense_loop_plan(m, n + m, F64, lanes, CAP, 132, HELD)
+    if name == "2AP40":
+        assert (k5.shape, k5.C) == ("cluster", 8)
+    else:
+        assert (k5.shape, k5.C, k5.P) == want
+    with pytest.raises(ValueError):  # a plan no cluster of 8 holds
+        cuda_lex.lex_plan_for(m, n, lanes, 1024, 132, HELD)
+
+
+def test_backend_reports_the_lanes_counts():
+    """A CPU front on the lex backend: backend_stats carries the kernel's
+    nodes, LP steps and critical path, no K6 launch, and the plain loop's
+    lockstep steps."""
+    p = read_problem(f"{EX}/G2AP05.lp")
+    be = lex_torch.TorchLexBackend(p, device="cpu")
+    front = solve_front(p, n_workers=2, backend=be, device="cpu", dp="off")
+    assert np.array_equal(front.points, golden("G2AP05"))
+    st = front.backend_stats
+    assert st["kernel_launches"] == 0 and st["k6_plans"] == []
+    assert st["nodes"] == be.nodes > 0 and st["iters"] == be.iters > st["nodes"]
+    assert st["nodes"] >= st["path_nodes"] >= st["device_batches"]
+    assert st["path_iters"] == be.path_iters <= st["lp_steps"] == be.lp_steps
+    assert st["host_syncs"] == be.host_syncs > st["bnb_steps"] == be.bnb_steps > 0
+
+
+def test_kernel_and_wrapper_refuse_bad_inputs():
+    """A perm outside the objectives, or a batch of the wrong width, raises
+    before anything runs; K6's wrapper takes CUDA tensors only."""
+    p = read_problem(f"{EX}/G3AP05.lp")
+    kern = lex_torch.make_lex_kernel(p, device="cpu")
+    rhs = np.tile(p.initial_rhs(), (2, 1))
+    with pytest.raises(ValueError):
+        kern(rhs, np.array([[0, 1, 3], [0, 1, 2]]))
+    with pytest.raises(ValueError):
+        kern(rhs[:, :2], np.array([[0, 1], [1, 0]]))
+    assert kern.bnb_steps == 0
+    perm = torch.tensor([[0, 1, 2], [2, 1, 0]])
+    with pytest.raises(ValueError):
+        cuda_lex.launch_lex_bnb(
+            kern.W, torch.as_tensor(rhs), perm, kern.C, kern.lb, kern.ub, kern.row_lb,
+            kern.row_ub, kern.is_int, kern.obj_integral, True, 160, 20000, 2000,
+            1e-9, 1e-9, 1e-9, 1e-12, 60,
+        )
+    assert kern.launches == 0
+
+
+@pytest.mark.parametrize("perm", [[[0, 1, 2], [0, 1, 3]], [[0, 1, 2], [-1, 1, 2]]],
+                         ids=["past-k", "negative"])
+def test_a_bad_perm_raises_before_the_distributed_round(perm):
+    """A perm naming an objective outside [0, k) raises in the lex kernel
+    and in the distributed round before any lane runs (on the card, a perm
+    already there is K6's to refuse lane by lane); the plain loop keeps its
+    lockstep counters, which a card's kernel does not have."""
+    p = read_problem(f"{EX}/G3AP05.lp")
+    rhs = np.tile(p.initial_rhs(), (2, 1))
+    with pytest.raises(ValueError, match="outside"):
+        lex_torch.check_perm(np.array(perm), p.objcnt)
+    lex_torch.check_perm(np.array([[0, 1, 2], [2, 1, 0]]), p.objcnt)
+    lex_torch.check_perm(torch.empty(0, 3, dtype=torch.int64), p.objcnt)
+    step, B = mesh.make_distributed_round(p, mesh.make_mesh(2, devices=[torch.device("cpu")] * 2),
+                                          batch_per_device=1)
+    assert B == 2
+    with pytest.raises(ValueError, match="outside"):
+        step(rhs, np.array(perm))
+    kern = lex_torch.make_lex_kernel(p, device="cpu")
+    with pytest.raises(ValueError, match="outside"):
+        kern(rhs, torch.tensor(perm))
+    assert kern.bnb_steps == kern.lp_steps == kern.host_syncs == 0
+    assert kern.lane_pivots is None and kern.lp is not None
+    assert kern.W.shape == (p.m_total, p.n + p.m_total) and kern.W.dtype == F64

@@ -5,14 +5,17 @@ Times K5 (``csrc/simplex_dense.cu`` through ``solver/cuda_dense.py``) on
 lanes made as chip_smoke.py's phase ``dense-loop`` makes them (its seeds)
 and prints one JSON line per row, after the card's name and power limit:
 
-* ``fronts`` (``--fronts``, run first): the fronts K5 serves, each run
-  twice (a timed run, then one under torch.profiler): the wave's XLA
+* ``fronts`` (``--fronts``, run first): the fronts K5's loop serves, each
+  run twice (a timed run, then one under torch.profiler): the wave's XLA
   engine on G2AP05, G3KP10 and 2AP20 in float32 and G3AP05 in float64
   (chip_smoke.py's XLA_FRONTS, its widths), the lex backend on G2AP05,
   G3AP05 and G3KP10 (LEX_FRONTS, ``n_workers=2``) and one lex kernel call
-  on 2AP20's 32 lanes (LEX_BATCH): seconds, IPs, waves or B&B steps, LP
-  steps, K5's launches (by shape, C and P where the checkout counts them),
-  the mean lanes a launch and K5's device time over the front;
+  on 2AP20's 32 lanes (LEX_BATCH): seconds, IPs, waves or batches, LP
+  steps (the lockstep steps of a checkout whose lex B&B runs from the host,
+  else the lanes' nodes and LP steps), the launches of K5 and of K6 (the
+  lex backend's batch in one kernel, where the checkout has it; by shape, C
+  and P where the checkout counts them), the mean lanes a launch and each
+  kernel's device time over the front;
 * ``k5``: K5 with the launch its wrapper picks at phase ``dense-loop``'s
   rows (G3KP10, KP2D50 and G2AP05 on 64 lanes, 2AP20 on 32, 2AP40 on
   256 and 2AP60 on 8, float32 and float64; the lex batch's 32 root LPs of 2AP20 in
@@ -113,13 +116,18 @@ def main() -> int:
     if args.sweep and not planned:
         raise SystemExit(f"k5_bench: {repo}'s K5 takes no launch plan")
 
-    def k5_device_ms(prof):
+    def device_ms(prof, kernel):
         return sum(
             getattr(e, "device_time_total", 0.0)
-            for e in prof.key_averages() if "simplex_dense" in e.key
+            for e in prof.key_averages() if kernel in e.key
         ) / 1e3
 
     cuda_dense._lib()  # build K5 before anything is timed
+    try:  # and K6, where the checkout has it
+        from moip_aira_tpu_torch.solver import cuda_lex
+        cuda_lex._lib()
+    except ImportError:
+        pass
     if args.fronts:
         from torch.profiler import ProfilerActivity, profile
 
@@ -144,10 +152,12 @@ def main() -> int:
                 if label == "time":
                     row = {"kind": "fronts", "repo": tag, "front": kind, "instance": name,
                            "dtype": dtype, "seconds": seconds,
-                           "k5_launches": LAUNCHES["simplex_dense"], **stats}
+                           "k5_launches": LAUNCHES["simplex_dense"],
+                           "k6_launches": LAUNCHES.get("lex_bnb", 0), **stats}
                 else:
                     row["profiled_seconds"] = seconds
-                    row["k5_device_ms"] = k5_device_ms(prof)
+                    row["k5_device_ms"] = device_ms(prof, "simplex_dense")
+                    row["k6_device_ms"] = device_ms(prof, "lex_bnb")
             emit(row)
 
         for name, dtype, workers, _ in smoke.XLA_FRONTS:
@@ -174,8 +184,11 @@ def main() -> int:
                     raise AssertionError(f"{p_name(p)}: the lex front differs from the golden")
                 st = front.backend_stats
                 return {"ips": int(front.ip_count), "batches": be.device_batches,
-                        "lanes": be.lanes, "bnb_steps": be.bnb_steps, "lp_steps": be.lp_steps,
-                        "host_syncs": be.host_syncs, "k5_plans": st.get("k5_plans")}
+                        "lanes": be.lanes, "bnb_steps": getattr(be, "bnb_steps", None),
+                        "lp_steps": getattr(be, "lp_steps", None),
+                        "nodes": st.get("nodes"), "iters": st.get("iters"),
+                        "path_iters": st.get("path_iters"), "host_syncs": be.host_syncs,
+                        "k5_plans": st.get("k5_plans"), "k6_plans": st.get("k6_plans")}
 
             front_row("lex", name, "float64", lex)
         name, lanes = smoke.LEX_BATCH
@@ -183,7 +196,9 @@ def main() -> int:
         def batch(p, lanes=lanes):
             kern = make_lex_kernel(p, device="cuda")
             kern(*smoke.lex_batch(p, lanes))
-            return {"lanes": lanes, "bnb_steps": kern.bnb_steps, "lp_steps": kern.lp_steps,
+            return {"lanes": lanes, "bnb_steps": getattr(kern, "bnb_steps", None),
+                    "lp_steps": getattr(kern, "lp_steps", None),
+                    "nodes": getattr(kern, "nodes", None), "iters": getattr(kern, "iters", None),
                     "host_syncs": kern.host_syncs}
 
         front_row("lex batch", name, "float64", batch)

@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""Time the port's lex backend (``backend="jax"``: solver/lex_torch.py on
-the dense simplex of solver/simplex_dense.py, K5 on the card) on the card.
+"""Time the port's lex backend (``backend="jax"``: solver/lex_torch.py, on
+the card K6, one launch a batch) on the card.
 
 For each front (G2AP05 on the bound sweep, G3AP05 and G3KP10 on the AIRA
 scheduler, ``n_workers=2``) it prints one JSON line with the seconds to the
-front, IPs, rounds, the lex counters (batches, lanes, fallbacks, B&B steps,
-LP steps, host syncs), K5's launches and microseconds an LP step, then the
-same front on the wave (K1) for comparison.  ``--batch`` adds one call of
-the lex kernel on the smoke's batch (``chip_smoke.LEX_BATCH``: 2AP20's 32
-lanes, the initial rhs and golden points under both orderings), timed on
-the card and, with ``--cpu``, on the CPU.  ``--cpu-fronts`` runs the fronts
-on the CPU alone (K5's plain version) and prints the same counters, the
-B&B and LP steps the smoke holds the card to (``chip_smoke.LEX_FRONTS``);
-it needs no card.
+front, IPs, rounds, the lex counters (batches, lanes, fallbacks, the lanes'
+B&B nodes and LP steps and the largest lane's of each batch, summed, host
+syncs), K6's launches and microseconds a node, then the same front on the
+wave (K1) for comparison.  ``--batch`` adds one call of the lex kernel on
+the smoke's batch (``chip_smoke.LEX_BATCH``: 2AP20's 32 lanes, the initial
+rhs and golden points under both orderings), timed on the card and, with
+``--cpu``, on the CPU.  ``--cpu-fronts`` runs the fronts on the CPU alone
+(K6's plain version) and prints the same counters: the IPs and the nodes
+and LP steps over all lanes that the smoke holds the card to
+(``chip_smoke.LEX_FRONTS``); it needs no card.
 
     python3 tools/lex_bench.py [--fronts G2AP05,G3AP05,G3KP10] [--batch] [--cpu]
     python3 tools/lex_bench.py --cpu-fronts
@@ -61,7 +62,8 @@ def main() -> int:
     if dev == "cuda":
         from moip_aira_tpu_torch.kernels.build import load
 
-        load("simplex_dense")  # K5 built before the fronts are timed
+        load("lex_bnb")  # K6 built before the fronts are timed, and K5,
+        load("simplex_dense")  # whose library reads the card's limits
         if not args.no_wave:
             load("dense_simplex")  # and K1 before the wave is
 
@@ -77,11 +79,12 @@ def main() -> int:
             "front": name, "backend": "jax", "seconds": sec,
             "golden": bool(np.array_equal(f.points, smoke.golden_front(name))),
             "ips": f.ip_count, "rounds": f.rounds,
-            **{k: f.backend_stats[k] for k in (
-                "device_batches", "lanes", "fallback_count",
-                "bnb_steps", "lp_steps", "host_syncs")},
-            "k5_launches": be.kernel.lp.launches if dev == "cuda" else 0,
-            "us_per_lp_step": sec / max(1, be.lp_steps) * 1e6,
+            # bnb_steps and lp_steps: the plain loop's only, on the CPU
+            **{k: f.backend_stats.get(k) for k in (
+                "device_batches", "lanes", "fallback_count", "nodes", "iters",
+                "path_nodes", "path_iters", "bnb_steps", "lp_steps", "host_syncs",
+                "kernel_launches")},
+            "us_per_node": sec / max(1, be.nodes) * 1e6,
             "device": dev, "torch": torch.__version__, "card": card,
         }
         print(json.dumps(row), flush=True)
@@ -117,9 +120,11 @@ def main() -> int:
             print(json.dumps({
                 "batch": name, "device": dev, "lanes": len(rhs), "seconds": sec,
                 "status": np.bincount(out[0], minlength=4).tolist(),
-                "bnb_steps": kern.bnb_steps, "lp_steps": kern.lp_steps,
-                "host_syncs": kern.host_syncs, "k5_launches": kern.lp.launches,
-                "us_per_lp_step": sec / max(1, kern.lp_steps) * 1e6,
+                "nodes": kern.nodes, "iters": kern.iters, "path_nodes": kern.path_nodes,
+                "path_iters": kern.path_iters, "launches": kern.launches,
+                "bnb_steps": getattr(kern, "bnb_steps", None),
+                "lp_steps": getattr(kern, "lp_steps", None),
+                "us_per_node": sec / max(1, kern.nodes) * 1e6,
                 "card": card,
             }), flush=True)
         if "cpu" in outs:
