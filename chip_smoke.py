@@ -1165,7 +1165,7 @@ def phase_front(phase, name, kernel):
     from moip_aira_tpu_torch.io import read_problem
     from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
     from moip_aira_tpu_torch.solver.wave import WaveLexBackend
-    from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
+    from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS, recording
 
     p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
     be = WaveLexBackend(
@@ -1175,7 +1175,8 @@ def phase_front(phase, name, kernel):
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    front = solve_front(p, backend=be, device="cuda")
+    with recording():
+        front = solve_front(p, backend=be, device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -1257,7 +1258,7 @@ def phase_frag_front(phase, name, workers, **kw):
     from moip_aira_tpu_torch.io import read_problem
     from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
     from moip_aira_tpu_torch.solver.wave import WaveLexBackend
-    from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
+    from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS, recording
 
     p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
     be = WaveLexBackend(p, device="cuda", fragments=True, **kw)
@@ -1265,7 +1266,8 @@ def phase_frag_front(phase, name, workers, **kw):
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    front = solve_front(p, n_workers=workers, backend=be, device="cuda")
+    with recording():
+        front = solve_front(p, n_workers=workers, backend=be, device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -2059,7 +2061,7 @@ def mesh_front(name, devs, workers, fragments, want=None, **widths):
     from moip_aira_tpu_torch.parallel.mesh import make_mesh
     from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES, reset_launches
     from moip_aira_tpu_torch.solver.wave import WaveLexBackend
-    from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
+    from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS, recording
 
     p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
     mesh = make_mesh(len(devs), devices=devs)
@@ -2069,9 +2071,11 @@ def mesh_front(name, devs, workers, fragments, want=None, **widths):
     sync_cards()
     reset_launches()
     t0 = time.perf_counter()
-    front = solve_front(
-        p, n_workers=workers, backend=be, device=devs[0], mesh_devices=len(devs), dp="off"
-    )
+    with recording():
+        front = solve_front(
+            p, n_workers=workers, backend=be, device=devs[0], mesh_devices=len(devs),
+            dp="off",
+        )
     sync_cards()
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)

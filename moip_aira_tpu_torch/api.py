@@ -25,6 +25,7 @@ from moip_aira_tpu_torch.parallel.split import MAX_WORKERS_NORMAL_SPLIT, split_s
 from moip_aira_tpu_torch.parallel.symgroup import max_workers
 from moip_aira_tpu_torch.problem import Problem
 from moip_aira_tpu_torch.sense import INF, Sense
+from moip_aira_tpu_torch.utils.trace import spanned
 
 __all__ = ["FrontResult", "device_mesh", "make_backend", "solve_front"]
 
@@ -212,6 +213,7 @@ def make_backend(
     raise ValueError(f"unknown backend {backend!r}")
 
 
+@spanned("front")
 def solve_front(
     problem: Problem,
     n_workers: int = 1,

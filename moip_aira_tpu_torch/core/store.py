@@ -42,6 +42,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from moip_aira_tpu_torch.sense import Sense
+from moip_aira_tpu_torch.utils.trace import counted
 
 
 class _DomIndex:
@@ -207,6 +208,7 @@ class Solutions:
         self._infeasible = np.resize(self._infeasible, cap)
 
     # -- reference API -----------------------------------------------------
+    @counted("store.insert")
     def insert(self, ip, result, infeasible: bool) -> None:
         """Store a solved subproblem (reference solutions.cpp:82-101)."""
         self._ensure(1)
@@ -222,6 +224,7 @@ class Solutions:
             self._index_row(i)
             self._idx_built = i + 1
 
+    @counted("store.find")
     def find(self, ip, sense: Sense) -> Optional[Result]:
         """Return a stored relaxation answering the query, else None."""
         if self._n == 0:
@@ -261,6 +264,7 @@ class Solutions:
         out[feas_hit] = self._results[rf[feas_hit]]
         return hit, infeas, out
 
+    @counted("store.merge")
     def merge(self, other: "Solutions") -> None:
         """Splice another store into this one (reference solutions.h:41-44)."""
         m = other._n

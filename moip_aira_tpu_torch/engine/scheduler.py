@@ -22,6 +22,7 @@ from moip_aira_tpu_torch.engine.worker import aira_worker
 from moip_aira_tpu_torch.engine.worker_spec import WorkerSpec
 from moip_aira_tpu_torch.problem import Problem
 from moip_aira_tpu_torch.solver.lex import LexRequest
+from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS, TRACE, trace
 
 
 class Scheduler:
@@ -58,28 +59,28 @@ class Scheduler:
             except StopIteration:
                 pass
 
-        from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS, TRACE, trace
-
         while live:
-            self.rounds += 1
-            reqs = [
-                LexRequest(rhs=item[2], perm=item[0].perm) for item in live
-            ]
-            self.batch_sizes.append(len(reqs))
-            if TRACE:
-                for item, r in zip(live, reqs):
-                    trace(item[0].id, f"round {self.rounds}: solve rhs={r.rhs}")
-            with GLOBAL_TIMINGS.span("scheduler.solve_round"):
+            # one round: its requests, the batch call, and every worker
+            # stepped to its next yield
+            with GLOBAL_TIMINGS.span("sched.round"):
+                self.rounds += 1
+                reqs = [
+                    LexRequest(rhs=item[2], perm=item[0].perm) for item in live
+                ]
+                self.batch_sizes.append(len(reqs))
+                if TRACE:
+                    for item, r in zip(live, reqs):
+                        trace(item[0].id, f"round {self.rounds}: solve rhs={r.rhs}")
                 outcomes = self.backend.lex_solve_batch(reqs)
-            nxt = []
-            for item, out in zip(live, outcomes):
-                spec, g, _ = item
-                self.ip_count += out.ip_solves
-                reply = (out.status.is_infeasible, out.result)
-                try:
-                    rhs = g.send(reply)
-                    nxt.append([spec, g, rhs])
-                except StopIteration:
-                    pass
-            live = nxt
+                nxt = []
+                for item, out in zip(live, outcomes):
+                    spec, g, _ = item
+                    self.ip_count += out.ip_solves
+                    reply = (out.status.is_infeasible, out.result)
+                    try:
+                        rhs = g.send(reply)
+                        nxt.append([spec, g, rhs])
+                    except StopIteration:
+                        pass
+                live = nxt
         return all_store

@@ -34,6 +34,7 @@ from moip_aira_tpu_torch.core.store import Solutions
 from moip_aira_tpu_torch.engine.worker_spec import WorkerSpec
 from moip_aira_tpu_torch.problem import Problem
 from moip_aira_tpu_torch.sense import INF, Sense
+from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
 
 # What a worker yields: the objective-bound vector of the CLMOIP it needs
 # solved. What it receives back: (infeasible, result_ints_or_None).
@@ -138,7 +139,9 @@ def aira_worker(
             relax = infeasibles.find(rhs, sense)
             if relax is None:
                 relax = s.find(rhs, sense)
+            GLOBAL_TIMINGS.count("store.lookup")
             if relax is not None:
+                GLOBAL_TIMINGS.count("store.hit")
                 infeasible = relax.infeasible
                 res = relax.result
             else:

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 
 from moip_aira_tpu_torch.sense import Sense
+from moip_aira_tpu_torch.utils.trace import counted
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
@@ -107,6 +108,7 @@ class NativeSolutions:
     def __len__(self) -> int:
         return int(self._lib.moip_store_size(self._h))
 
+    @counted("store.insert")
     def insert(self, ip, result, infeasible: bool) -> None:
         ip = np.ascontiguousarray(ip, dtype=np.float64)
         if infeasible:
@@ -120,6 +122,7 @@ class NativeSolutions:
             1 if infeasible else 0,
         )
 
+    @counted("store.find")
     def find(self, ip, sense: Sense):
         from moip_aira_tpu_torch.core.store import Result
 
@@ -158,6 +161,7 @@ class NativeSolutions:
             )
         return hit.astype(bool), infeas.astype(bool), res
 
+    @counted("store.merge")
     def merge(self, other: "NativeSolutions") -> None:
         self._lib.moip_store_merge(self._h, other._h)
 

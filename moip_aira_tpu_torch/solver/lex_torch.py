@@ -37,6 +37,7 @@ from moip_aira_tpu_torch.solver.simplex_dense import PROGRESS_TOL, make_lp_solve
 from moip_aira_tpu_torch.solver.simplex_np import COST_TOL, FEAS_TOL, PIVOT_TOL, STALL_LIMIT
 from moip_aira_tpu_torch.solver.simplex_torch import ITER_LIMIT, OPTIMAL, UNBOUNDED
 from moip_aira_tpu_torch.solver.status import SolveStatus
+from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS, spanned
 
 __all__ = [
     "LEX_BAD_PERM", "LEX_INFEASIBLE", "LEX_OPTIMAL", "LEX_RESOURCE", "LexKernel",
@@ -299,15 +300,24 @@ class LexKernel:
         return found, resource, best, nodes, iters, pivots
 
     def __call__(self, rhs, perm):
+        """The batch's ``rhs`` and ``perm``, tensors or sequences of rows
+        (packed here in NumPy), checked and moved to the device (span
+        ``lex.pack``), then K6's launch or its plain version (``lex.launch``)."""
         dev = self.device
-        check_perm(perm, self.k)
-        rhs = torch.as_tensor(rhs, dtype=torch.float64, device=dev).contiguous()
-        perm = torch.as_tensor(perm, dtype=torch.int64, device=dev).contiguous()
-        if rhs.dim() != 2 or rhs.shape[1] != self.k or perm.shape != rhs.shape:
-            raise ValueError(f"rhs and perm must have shape (B, {self.k})")
-        if dev.type == "cuda":
-            return self._launch(rhs, perm)
-        return self._plain(rhs, perm)
+        with GLOBAL_TIMINGS.span("lex.pack"):
+            if not torch.is_tensor(rhs):
+                rhs = np.asarray(rhs, dtype=np.float64)
+            if not torch.is_tensor(perm):
+                perm = np.asarray(perm, dtype=np.int64)
+            check_perm(perm, self.k)
+            rhs = torch.as_tensor(rhs, dtype=torch.float64, device=dev).contiguous()
+            perm = torch.as_tensor(perm, dtype=torch.int64, device=dev).contiguous()
+            if rhs.dim() != 2 or rhs.shape[1] != self.k or perm.shape != rhs.shape:
+                raise ValueError(f"rhs and perm must have shape (B, {self.k})")
+        with GLOBAL_TIMINGS.span("lex.launch"):
+            if dev.type == "cuda":
+                return self._launch(rhs, perm)
+            return self._plain(rhs, perm)
 
     def _launch(self, rhs, perm):
         """K6 on the batch: one launch, its outputs left on the card."""
@@ -422,23 +432,26 @@ class TorchLexBackend:
             out.extend(self._solve_chunk(reqs[i0 : i0 + self.batch_width]))
         return out
 
+    @spanned("lex.batch")
     def _solve_chunk(self, reqs: List[LexRequest]) -> List[LexOutcome]:
-        rhs = np.array([np.asarray(r.rhs, dtype=np.float64) for r in reqs])
-        perm = np.array([list(r.perm) for r in reqs], dtype=np.int64)
-        status, results, ips = (t.cpu().numpy() for t in self.kernel(rhs, perm))
+        outputs = self.kernel([r.rhs for r in reqs], [r.perm for r in reqs])
+        # the host waits here for the card
+        with GLOBAL_TIMINGS.span("lex.copy"):
+            status, results, ips = (t.cpu().numpy() for t in outputs)
         self.device_batches += 1
         self.lanes += len(reqs)
 
         out: List[LexOutcome] = []
-        for i, req in enumerate(reqs):
-            if status[i] == LEX_RESOURCE:
-                # exact host fallback for pathological lanes
-                self.fallback_count += 1
-                out.append(self._fallback.lex_solve(req))
-            elif status[i] == LEX_OPTIMAL:
-                out.append(
-                    LexOutcome(SolveStatus.OPTIMAL, results[i].astype(np.int64), int(ips[i]))
-                )
-            else:
-                out.append(LexOutcome(SolveStatus.INFEASIBLE, None, int(ips[i])))
+        with GLOBAL_TIMINGS.span("lex.unpack"):
+            for i, req in enumerate(reqs):
+                if status[i] == LEX_RESOURCE:
+                    # exact host fallback for pathological lanes
+                    self.fallback_count += 1
+                    out.append(self._fallback.lex_solve(req))
+                elif status[i] == LEX_OPTIMAL:
+                    out.append(
+                        LexOutcome(SolveStatus.OPTIMAL, results[i].astype(np.int64), int(ips[i]))
+                    )
+                else:
+                    out.append(LexOutcome(SolveStatus.INFEASIBLE, None, int(ips[i])))
         return out

@@ -129,6 +129,11 @@ def main() -> int:
         from moip_aira_tpu_torch.solver.wave import WaveLexBackend
         from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
 
+        try:
+            from moip_aira_tpu_torch.utils.trace import recording
+        except ImportError:  # an older checkout, whose spans always record
+            recording = nullcontext
+
         from torch.profiler import ProfilerActivity, profile
 
         def k1_launches(prof):
@@ -148,7 +153,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 log = []
                 ctx = profile(activities=[ProfilerActivity.CUDA]) if run == "profile" else nullcontext()
-                with ctx as prof:
+                with ctx as prof, recording():
                     t0 = time.perf_counter()
                     if widths is None:
                         front = solve_front(p, n_workers=2, backend="wave", device="cuda")

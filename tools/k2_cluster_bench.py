@@ -36,6 +36,7 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: 31 lanes: one more than the clusters of four the H100 holds at once
@@ -144,13 +145,19 @@ def main() -> int:
         from moip_aira_tpu_torch.solver.wave import WaveLexBackend
         from moip_aira_tpu_torch.utils.trace import GLOBAL_TIMINGS
 
+        try:
+            from moip_aira_tpu_torch.utils.trace import recording
+        except ImportError:  # an older checkout, whose spans always record
+            recording = nullcontext
+
         p = read_problem(os.path.join(smoke.EXAMPLES, "2AP40.lp"))
         be = WaveLexBackend(p, device="cuda", fragments=False, batch_width=2048, nodes_per_task=32)
         spans0 = dict(GLOBAL_TIMINGS.totals)
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
-        front = solve_front(p, backend=be, device="cuda")
+        with recording():
+            front = solve_front(p, backend=be, device="cuda")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         if not np.array_equal(front.points, smoke.golden_front("2AP40")):
