@@ -249,8 +249,8 @@ LEX_FRONTS = (
 #: tableau of 42 x 442 a lane), the reference backend's 32 lanes
 LEX_BATCH = ("2AP20", 32)
 #: the lex kernel's batch at the fronts' shape: G3KP10's 32 lanes (n = 10,
-#: m = 4), K6's ``packed`` plan, the one its fronts and the mesh round
-#: launch
+#: m = 4), on K6's ``regs`` plan, the one its fronts and the mesh round
+#: launch, and forced onto K5's ``packed`` plan
 LEX_PACKED_BATCH = ("G3KP10", 32)
 #: the XLA engine's fronts at `real`'s widths: (instance, dtype, n_workers,
 #: the phase whose K1 front it stands beside)
@@ -1784,39 +1784,66 @@ def lex_bound(m, n, k, nodes, iters, pivots):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def lex_batch_row(name, lanes, want_shape, smi):
+def lex_batch_row(name, lanes, want_shape, smi, force=None):
     """One call of the lex kernel on ``lex_batch``'s lanes of ``name`` on
-    the card (one K6 launch, in the plan ``want_shape`` when given) and on
-    the CPU, held lane by lane: status, results, IPs, nodes and LP steps;
-    then K6 timed beside its plain version and its bound.  Returns the
-    row and the largest difference (0)."""
+    the card (one K6 launch, in the plan ``want_shape`` when given; with
+    ``force``, a shape of K6's plans for the shape, its plan of four lanes
+    a block) and on the CPU, held lane by lane: status, results, IPs,
+    nodes and LP steps; then K6 timed beside its plain version and its
+    bound.  Returns the row and the largest difference (0)."""
     import numpy as np
     import torch
 
     from moip_aira_tpu_torch.io import read_problem
-    from moip_aira_tpu_torch.solver.cuda_lex import lex_plan
+    from moip_aira_tpu_torch.solver.cuda_dense import K5_PACK_LANES
+    from moip_aira_tpu_torch.solver.cuda_lex import launch_lex_bnb, lex_plans
+    from moip_aira_tpu_torch.solver import lex_torch as lt
     from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
     from moip_aira_tpu_torch.solver.lex_torch import LEX_RESOURCE, make_lex_kernel
 
     p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
     rhs, perm = lex_batch(p, lanes)
-    outs, times, kerns = {}, {}, {}
+    outs, times, kerns, calls = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         kern = make_lex_kernel(p, device=dev)
+
+        def call(kern=kern):
+            # the kernel's call: status, results, IPs, then each lane's nodes
+            # and LP steps
+            out = kern(rhs, perm)
+            return [*out, kern.lane_nodes, kern.lane_iters]
+
         if dev == "cuda":
             torch.cuda.synchronize()
-            k5 = LAUNCHES["simplex_dense"]
+            k5, k6 = LAUNCHES["simplex_dense"], LAUNCHES["lex_bnb"]
+            if force is not None:
+                forced = next(q for q in lex_plans(kern.W)
+                              if q.shape == force and q.P == K5_PACK_LANES)
+                lanes_t = [torch.as_tensor(a, device="cuda") for a in (rhs, perm)]
+
+                def call(kern=kern, lanes_t=lanes_t, forced=forced):
+                    # LexKernel._launch's call, on the forced plan, recorded
+                    # by the wrapper in the kernel's plan_launches
+                    out = launch_lex_bnb(
+                        kern.W, *lanes_t, kern.C, kern.lb, kern.ub, kern.row_lb,
+                        kern.row_ub, kern.is_int, kern.obj_integral, kern.is_min, kern.maxn,
+                        kern.max_bnb_nodes, kern.lp_max_iters, lt.FEAS_TOL, lt.COST_TOL,
+                        lt.PIVOT_TOL, lt.PROGRESS_TOL, lt.STALL_LIMIT, plan=forced,
+                        plan_launches=kern.plan_launches,
+                    )
+                    return list(out)
+        calls[dev] = call
         t0 = time.perf_counter()
-        out = kern(rhs, perm)
+        out = call()
         if dev == "cuda":
             if not all(t.is_cuda for t in out):
                 raise AssertionError("the lex kernel's results left the card")
             torch.cuda.synchronize()
             k5 = LAUNCHES["simplex_dense"] - k5
+            k6 = LAUNCHES["lex_bnb"] - k6
+            launched = dict(kern.plan_launches)
         times[dev] = time.perf_counter() - t0
-        outs[dev] = [t.cpu().numpy() for t in out] + [
-            kern.lane_nodes.cpu().numpy(), kern.lane_iters.cpu().numpy()
-        ]
+        outs[dev] = [t.cpu().numpy() for t in out]
         kerns[dev] = kern
     for a, b, what in zip(outs["cuda"], outs["cpu"],
                           ("status", "results", "ips", "nodes", "iters")):
@@ -1825,16 +1852,17 @@ def lex_batch_row(name, lanes, want_shape, smi):
             raise AssertionError(f"{name}: the lex kernel's {what} on the card differ from "
                                  f"the CPU's on lanes {bad}")
     kern, cpu = kerns["cuda"], kerns["cpu"]
-    if kern.launches != 1 or k5 != 0:
-        raise AssertionError(f"{name}: K6 {kern.launches}, K5 {k5} launches")
-    plan = lex_plan(kern.W, lanes)
-    if want_shape is not None and plan.shape != want_shape:
+    if k6 != 1 or k5 != 0 or sum(launched.values()) != 1:
+        raise AssertionError(f"{name}: K6 {k6} ({launched}), K5 {k5} launches")
+    (shape, C, P), = launched
+    plan = next(q for q in lex_plans(kern.W) if (q.shape, q.C, q.P) == (shape, C, P))
+    if want_shape is not None and shape != want_shape:
         raise AssertionError(f"{name}: K6 ran {plan}, not the {want_shape} plan")
     status = outs["cuda"][0]
     resource = int((status == LEX_RESOURCE).sum())
     if resource > MAX_FALLBACK_SHARE * lanes:
         raise AssertionError(f"{name}: {resource} of {lanes} lanes would fall back")
-    ms = cuda_ms(lambda: kern(rhs, perm))
+    ms = cuda_ms(calls["cuda"])
     bound_ms, bound_by = lex_bound(p.m_total, p.n, p.objcnt, cpu.lane_nodes.numpy(),
                                    cpu.lane_iters.numpy(), cpu.lane_pivots.numpy())
     row = {
@@ -1861,11 +1889,11 @@ def phase_lex():
     batch one launch of K6) on the card: three fronts against their
     goldens, IPs and the CPU's totals of the lanes' nodes and LP steps,
     with K6 launched once a batch and no other kernel, then one batch of
-    the lex kernel at the fronts' plan (G3KP10, ``packed``) and one at
-    2AP20, each held against the same call on the CPU lane by lane, counts
-    included, and K6 timed on each beside its plain version.  Returns the
-    rows, K6's entry of the kernel table (without its launches) and K6's
-    launches on the fronts."""
+    the lex kernel at the fronts' shape (G3KP10) on their plan (``regs``)
+    and on K5's ``packed``, and one at 2AP20, each held against the same
+    call on the CPU lane by lane, counts included, and K6 timed on each
+    beside its plain version.  Returns the rows, K6's entry of the kernel
+    table (without its launches) and K6's launches on the fronts."""
     import numpy as np
     import torch
 
@@ -1925,13 +1953,15 @@ def phase_lex():
         rows.append(row)
 
     batches = {}
-    for (name, lanes), want in ((LEX_PACKED_BATCH, "packed"), (LEX_BATCH, None)):
-        row, err = lex_batch_row(name, lanes, want, smi)
+    for (name, lanes), want, force in ((LEX_PACKED_BATCH, "regs", None),
+                                       (LEX_PACKED_BATCH, "packed", "packed"),
+                                       (LEX_BATCH, None, None)):
+        row, err = lex_batch_row(name, lanes, want, smi, force)
         emit(row)
         rows.append(row)
-        batches[name] = (row, err)
-    row = batches[LEX_BATCH[0]][0]
-    packed = batches[LEX_PACKED_BATCH[0]][0]
+        batches[name, want] = (row, err)
+    row = batches[LEX_BATCH[0], None][0]
+    fronts_plan = {want: batches[LEX_PACKED_BATCH[0], want][0] for want in ("regs", "packed")}
     # no single PyTorch call computes a batch of lexicographic B&Bs
     entry = {
         "name": "lex_bnb",
@@ -1947,9 +1977,11 @@ def phase_lex():
         "bound_by": row["bound_by"],
         "library_ms": None,
         "plan": row["plan"],
-        # the same numbers at the plan the fronts and the mesh round launch
-        "packed": {key: packed[key] for key in (
-            "instance", "lanes", "ms", "plain_ms", "bound_ms", "bound_by", "plan")},
+        # the same numbers at the fronts' shape: on the plan the fronts and
+        # the mesh round launch (regs), and on K5's packed
+        **{want: {key: r[key] for key in (
+            "instance", "lanes", "ms", "plain_ms", "bound_ms", "bound_by", "plan")}
+           for want, r in fronts_plan.items()},
     }
     return rows, entry, k6_launches
 

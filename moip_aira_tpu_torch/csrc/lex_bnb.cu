@@ -39,12 +39,15 @@
 // dependent step latencies (simplex_dense.cu), with the lanes' nodes
 // diverging.  What the design does about it: a lane's nodes run back to
 // back in one launch, with no host between them (the host loop it replaces
-// launched K5 once a B&B step and read the device twice); the tableau and
-// the node's rows stay in shared memory; the plan is K5's (packed: a warp a
-// lane, each warp its own B&B with no block barrier; block; cluster: each
-// block a slice of the columns, every decision taken from values every
-// block holds equal; global: the tableau slices, and the node's rows, in a
-// global scratch), with K6's own shared bytes counted.
+// launched K5 once a B&B step and read the device twice); an LP of at most
+// 16 rows and 32 columns runs in K6's own shape, regs (a warp a lane, the
+// whole LP in the warp's registers, each step a chain of shuffles with no
+// memory access and no barrier; below); a larger one on K5's plan, the
+// tableau and the node's rows in shared memory (packed: a warp a lane, each
+// warp its own B&B with no block barrier; block; cluster: each block a
+// slice of the columns, every decision taken from values every block holds
+// equal; global: the tableau slices, and the node's rows, in a global
+// scratch), with K6's own shared bytes counted.
 //
 // On a cluster, each block holds the node's full rows (the LP's start reads
 // every column) but pushes only its slice of the children; it publishes its
@@ -73,6 +76,9 @@ constexpr int LEX_BAD_PERM = 4;
 // that is not integral
 constexpr double INT_TOL = 1e-6;
 constexpr double REAL_TOL = 1e-9;
+// K6's own shape, after K5's four: a warp a lane, the LP in its registers
+// (lex_bnb_regs_kernel, below), no shared memory
+constexpr int SHAPE_REGS = 4;
 
 // K6's part of a lane's shared memory, after K5's (k5_layout), as byte
 // offsets from its end, each 16-byte aligned: the node's rows c, lo, hi
@@ -120,6 +126,7 @@ __host__ __device__ inline size_t lex_lane_bytes(int shape, int m, int n,
 // shape, else one lane's (its slice on a cluster)
 __host__ __device__ inline size_t lex_smem_bytes(int shape, int m, int n,
                                                  int C, int P) {
+  if (shape == SHAPE_REGS) return 0;
   const size_t lane = lex_lane_bytes(shape, m, n, C);
   return shape == SHAPE_PACKED ? (size_t)P * lane : lane;
 }
@@ -439,7 +446,657 @@ __global__ void __launch_bounds__(K5_MAX_THREADS) lex_bnb_kernel(const LexArgs a
   }
 }
 
+// ---- the regs shape: a warp a lane, the node's LP in its registers ----------
+//
+// K6's own shape (K5 has none such): for an LP of m <= REGS_ROWS rows and
+// nc <= REGS_COLS columns, one warp runs one lane, P lanes a block, and
+// every value of a node's LP lives in the warp's registers.  Thread t holds
+// column t mod CW (CW = 16 or 32 >= nc; with 16, threads t and t + 16 hold
+// the same column): the column's m tableau values, c, lo, hi, its values at each bound, the bound flip's length, its
+// objective term, its free / in-basis / at-upper flags.  Rows: with at most
+// MR = 8 of them, every thread holds every row's x_B, bounds and basic
+// column, so the row sums, the ratio minimum, the row pick and the basic
+// values' step take no shuffle (one division a thread: its own row's
+// ratio, shuffled to all); with up to 16, thread i holds row i (mod MR),
+// and the minimum and the row pick are butterflies over the MR row
+// threads.  The rows' costs c_B and below/above flags (as bit masks) and
+// the entering column are alike in every thread, and so are the phase, the
+// stall count, the watermark and the step's outcome.  So a step touches no
+// memory and passes no barrier but its shuffles: pricing from registers;
+// the column arg-max a butterfly over the CW threads that hold a column;
+// the winner's column and values shuffled from their owner; the
+// objective's nonbasic sum as a shuffle chain from column 0, the plain
+// loop's order for at most 32 terms.
+// Every shuffle is unconditional (its count compile-time): a shuffle under
+// a branch is split from its neighbours by the compiler's convergence
+// check, and a step is bound by its instruction count and latencies.  The
+// last pivot's rank-1 update is done at the end of its step, not fused
+// into the next pricing: the same operations on the same values.  A node's
+// start reads its stack row (each thread its own columns', so no thread
+// reads what another wrote) and W's columns and rows (through L1; W is the
+// launch's one read-only array); its finish gathers x and the objective by
+// shuffles.  Every float64 operation is dense_lane's in its order and
+// rounding, so each lane's outputs and counts are the other shapes'.  MR
+// and CW are compile-time, so the arrays stay in registers;
+// lex_regs_kernel_for picks the instantiation.
+
+constexpr int REGS_ROWS = 16;  // rows: the tableau's registers a thread
+constexpr int REGS_COLS = 32;  // columns: one a thread
+
+// the parts of a regs lane's run that a -DK6_CLOCKS build counts, in SM
+// cycles of its first thread, summed over its nodes and steps: a node's
+// start (its stack row, W's columns, the column constants) and its x_B;
+// per step pricing, the column arg-max, the winner's values, the
+// objective's nonbasic sum, the ratio test with its minimum, the row pick,
+// the outcome, the basic values' step with the rank-1 update, the next
+// step's row sums; a node's finish (x, the objective) and its B&B part
+// (the most fractional column, the children)
+#ifdef K6_CLOCKS
+constexpr int K6_N_PARTS = 13;
+__device__ unsigned long long* k6_clocks;
+#define K6_CLOCK_DECL \
+  unsigned long long ck_[K6_N_PARTS] = {}; long long ck_t_ = clock64();
+#define K6_TICK(part)                                \
+  do {                                               \
+    const long long t_ = clock64();                  \
+    ck_[part] += (unsigned long long)(t_ - ck_t_);   \
+    ck_t_ = t_;                                      \
+  } while (0)
+#define K6_CLOCK_STORE(on, lane)                                   \
+  do {                                                             \
+    if ((on) && k6_clocks != nullptr)                              \
+      for (int p_ = 0; p_ < K6_N_PARTS; ++p_)                      \
+        k6_clocks[(size_t)(lane) * K6_N_PARTS + p_] = ck_[p_];     \
+  } while (0)
+#else
+#define K6_CLOCK_DECL
+#define K6_TICK(part) \
+  do {                \
+  } while (0)
+#define K6_CLOCK_STORE(on, lane) \
+  do {                           \
+  } while (0)
+#endif
+
+// whether the regs shape takes an LP of m rows and n structural columns
+__host__ __device__ inline bool regs_takes(int m, int n) {
+  return m >= 1 && n >= 0 && m <= REGS_ROWS && n + m <= REGS_COLS;
+}
+
+// The chain over the nc <= CW columns of each column's values u[j] and
+// (TWO) w[j], shuffled from the column's thread (every one of the CW, so
+// no shuffle waits on a branch) eight columns ahead of their links: acc = first(u[0], w[0]), then acc = link(acc, u[j], w[j]).
+// xla_sum's and xla_dot's order for one item.
+template <int CW, bool TWO, class First, class Link>
+__device__ __forceinline__ double col_chain(double u, double w, int nc, const First& first,
+                                            const Link& link) {
+  double acc = 0.0;
+#pragma unroll
+  for (int j0 = 0; j0 < CW; j0 += 8) {
+    double us[8], ws[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      us[i] = __shfl_sync(FULL, u, j0 + i);
+      ws[i] = TWO ? __shfl_sync(FULL, w, j0 + i) : 0.0;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (j0 + i < nc) acc = j0 + i == 0 ? first(us[i], ws[i]) : link(acc, us[i], ws[i]);
+  }
+  return acc;
+}
+
+// xla_sum over the nc <= 32 columns' terms v: the chain from column 0
+template <int CW>
+__device__ __forceinline__ double col_sum(double v, int nc) {
+  using T = double;
+  return col_chain<CW, false>(v, T(0), nc, [](T u, T) { return u; },
+                              [](T acc, T u, T) { return __dadd_rn(acc, u); });
+}
+
+// a / b as __ddiv_rn gives it; a zero or infinite a over a finite nonzero
+// b is its signed zero or infinity without a division, a quotient whose
+// range the division's check would send down its slow path
+__device__ __forceinline__ double div_rn(double a, double b) {
+  const bool easy = (a == 0.0 || isinf(a)) && isfinite(b) && b != 0.0;
+  const double q = __ddiv_rn(easy ? 1.0 : a, b);
+  return easy ? (signbit(b) ? -a : a) : q;
+}
+
+// The butterfly over groups of WIDTH lanes (a power of two): (v, j) the
+// largest of the group by `wins`, in every lane of it, without a branch
+template <int WIDTH>
+__device__ __forceinline__ void best_of(double& v, int& j) {
+#pragma unroll
+  for (int off = WIDTH / 2; off > 0; off >>= 1) {
+    const double ov = __shfl_xor_sync(FULL, v, off);
+    const int oj = __shfl_xor_sync(FULL, j, off);
+    const bool w = wins(ov, oj, v, j);
+    v = w ? ov : v;
+    j = w ? oj : j;
+  }
+}
+
+template <int MR, int CW>
+__global__ void __launch_bounds__(32 * K5_MAX_PACK)
+    lex_bnb_regs_kernel(const LexArgs a) {
+  using T = double;
+  // the rows alike in every thread (MR <= 8: their few values in each
+  // thread's registers), else row i in thread i
+  constexpr bool REP = MR <= 8;
+  constexpr int RR = REP ? MR : 1;  // the rows a thread keeps
+  const int m = a.m, n = a.n, k = a.k, nc = n + m;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= a.batch) return;  // no barrier but the warp's own
+  constexpr int Gm = MR;           // the threads a row group spans
+  const int jc = lane & (CW - 1);  // this thread's column
+  const bool has = jc < nc;        // ... that exists
+  const bool sint = jc < n && a.is_int[jc] != 0;  // ... an integer structural one
+  const int ri = lane & (Gm - 1);  // this thread's row
+  const bool hasr = ri < m;
+  const int rr = hasr ? ri : m - 1;
+  const int mk = m - k;
+  const T INF = T(INFINITY);
+  const T ft = a.ft, ct = a.ct, pt = a.pt, prog = a.prog;
+  T* stk_lo = a.stack + (size_t)b * 2 * a.maxn * n;  // [maxn][n]
+  T* stk_hi = stk_lo + (size_t)a.maxn * n;
+
+  // row rr's logical bounds: the constraint row's, or the objective row's
+  // by srhs, which the stages tighten
+  T rlo, rhi;
+  if (rr < mk) {
+    rlo = a.row_lb[rr];
+    rhi = a.row_ub[rr];
+  } else {
+    const T r = a.rhs[(size_t)b * k + (rr - mk)];
+    rlo = a.is_min ? -INF : r;
+    rhi = a.is_min ? r : INF;
+  }
+  if (lane == 0)
+    for (int s = 0; s < k; ++s) a.results[(size_t)b * k + s] = 0;
+  bool bad_perm = false;
+  for (int s = 0; s < k; ++s) {
+    const long long j = a.perm[(size_t)b * k + s];
+    bad_perm = bad_perm || j < 0 || j >= k;
+  }
+  if (bad_perm) {
+    if (lane == 0) {
+      a.status[b] = LEX_BAD_PERM;
+      a.ips[b] = 0;
+      a.nodes[b] = 0;
+      a.iters[b] = 0;
+    }
+    return;
+  }
+  bool alive = true, resource = false;
+  int ips = 0;
+  long long nodes_all = 0, iters_all = 0;
+  const T sgn = a.is_min ? T(1) : T(-1);
+  K6_CLOCK_DECL
+
+  for (int s = 0; s < k; ++s) {
+    const int jo = (int)a.perm[(size_t)b * k + s];
+    const bool active = alive && !resource;
+    bool found = false, res_s = false;
+    T best = INF;
+    if (active) {
+      const bool oint = a.obj_integral[jo] != 0;
+      const T tol = oint ? INT_TOL : REAL_TOL;
+      // the stage's costs (0 on the logical columns), the logical columns'
+      // bounds from their rows' threads, and the root's bounds on the stack
+      const int j = jc;
+      const T cc = j < n ? __dmul_rn(sgn, a.C[(size_t)jo * n + j]) : T(0);
+      const int src = (has && j >= n) ? j - n : 0;
+      const T blo = __shfl_sync(FULL, rlo, src);
+      const T bhi = __shfl_sync(FULL, rhi, src);
+      if (j < n) {
+        stk_lo[j] = a.lb[j];
+        stk_hi[j] = a.ub[j];
+      }
+      __syncwarp();
+      int sp = 1, nodes = 0;
+      bool unbounded = false;
+      while (sp > 0 && !res_s && !unbounded) {
+        const int sp1 = sp - 1;
+        // ---- the node's LP: start -------------------------------------
+        const T lo = j < n ? stk_lo[(size_t)sp1 * n + j] : blo;
+        const T hi = j < n ? stk_hi[(size_t)sp1 * n + j] : bhi;
+        const int empty = __any_sync(FULL, has && lo > __dadd_rn(hi, ft));
+        const bool lof = isfinite(lo), hif = isfinite(hi);
+        const bool fre = !lof && !hif;
+        const T zlo = lof ? lo : (hif ? hi : T(0));
+        const T zup = hif ? hi : zlo;
+        const T span = (lof && hif) ? __dsub_rn(hi, lo) : INF;
+        bool inb = j >= n, atu = j < n && !lof && hif;
+        T cz = __dmul_rn(cc, j >= n ? T(0) : (atu ? zup : zlo));
+        const T z0 = j < n ? zlo : T(0);
+        T t[MR];
+        const int jw = has ? j : 0;
+#pragma unroll
+        for (int i = 0; i < MR; ++i) t[i] = i < m ? -__ldg(a.W + (size_t)i * nc + jw) : T(0);
+        K6_TICK(0);
+        // x_B = -T0 z0 with T0 = -W, row rr by its thread: the chain of
+        // fused multiply-adds over the columns from column 0
+        T xb;
+        {
+          const T* Wr = a.W + (size_t)rr * nc;
+          T acc = T(0);
+#pragma unroll
+          for (int j0 = 0; j0 < CW; j0 += 8) {
+            T wv[8], zv[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              wv[i] = j0 + i < nc ? -__ldg(Wr + j0 + i) : T(0);
+              zv[i] = __shfl_sync(FULL, z0, j0 + i);
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              if (j0 + i < nc)
+                acc = j0 + i == 0 ? __dmul_rn(wv[i], zv[i]) : __fma_rn(wv[i], zv[i], acc);
+          }
+          xb = -acc;
+        }
+        // the rows: x_B, bounds, basic column; REP: every row's in every
+        // thread, else row rr's
+        T xB[RR], bl[RR], bh[RR];
+        int basis[RR];
+        if constexpr (REP) {
+#pragma unroll
+          for (int i = 0; i < RR; ++i) {
+            xB[i] = __shfl_sync(FULL, xb, i);
+            bl[i] = __shfl_sync(FULL, rlo, i);
+            bh[i] = __shfl_sync(FULL, rhi, i);
+            basis[i] = n + i;
+          }
+        } else {
+          xB[0] = xb;
+          bl[0] = rlo;
+          bh[0] = rhi;
+          basis[0] = n + rr;
+        }
+        T cBb[MR];  // each row's cost c[basis], alike in every thread
+#pragma unroll
+        for (int i = 0; i < MR; ++i) cBb[i] = T(0);  // the logical columns'
+
+        int status = empty ? INFEASIBLE : RUNNING;
+        int it = 0, stall = 0, stall_e = 0;
+        bool p1 = true, p1n = true;
+        T last = INF, last_e = INF, infeas = T(0), cbx = T(0);
+        unsigned bwm = 0, abm = 0;  // bit i: row i below / above its bounds
+        K6_TICK(1);
+
+        // the row terms of the step about to start, its three row sums as
+        // chains from row 0 (REP: in every thread; else shuffled from each
+        // row's thread), and its phase test
+        auto rows_and_sums = [&]() {
+          T s_lo = T(0), s_hi = T(0);
+          if constexpr (REP) {
+            unsigned bwb = 0, abb = 0;
+#pragma unroll
+            for (int i = 0; i < RR; ++i) {
+              if (i < m) {
+                const bool bw = xB[i] < __dsub_rn(bl[i], ft);
+                const bool ab = xB[i] > __dadd_rn(bh[i], ft);
+                bwb |= (unsigned)bw << i;
+                abb |= (unsigned)ab << i;
+                const T t1v = bw ? __dsub_rn(bl[i], xB[i]) : T(0);
+                const T t2v = ab ? __dsub_rn(xB[i], bh[i]) : T(0);
+                s_lo = i == 0 ? t1v : __dadd_rn(s_lo, t1v);
+                s_hi = i == 0 ? t2v : __dadd_rn(s_hi, t2v);
+                cbx = i == 0 ? __dmul_rn(cBb[0], xB[0]) : __fma_rn(cBb[i], xB[i], cbx);
+              }
+            }
+            bwm = bwb;
+            abm = abb;
+          } else {
+            const bool bw = xB[0] < __dsub_rn(bl[0], ft);
+            const bool ab = xB[0] > __dadd_rn(bh[0], ft);
+            bwm = __ballot_sync(FULL, bw);
+            abm = __ballot_sync(FULL, ab);
+            const T t1v = bw ? __dsub_rn(bl[0], xB[0]) : T(0);
+            const T t2v = ab ? __dsub_rn(xB[0], bh[0]) : T(0);
+            s_lo = __shfl_sync(FULL, t1v, 0);
+            s_hi = __shfl_sync(FULL, t2v, 0);
+            cbx = __dmul_rn(cBb[0], __shfl_sync(FULL, xB[0], 0));
+#pragma unroll
+            for (int i = 1; i < MR; ++i) {
+              const T u = __shfl_sync(FULL, t1v, i), v = __shfl_sync(FULL, t2v, i);
+              const T x = __shfl_sync(FULL, xB[0], i);
+              if (i < m) {
+                s_lo = __dadd_rn(s_lo, u);
+                s_hi = __dadd_rn(s_hi, v);
+                cbx = __fma_rn(cBb[i], x, cbx);
+              }
+            }
+          }
+          infeas = __dadd_rn(s_lo, s_hi);
+          p1n = p1 && infeas > ft;  // phase 1 ends once feasible
+          const bool entered = p1 && !p1n;
+          stall_e = entered ? 0 : stall;
+          last_e = entered ? INF : last;
+        };
+        rows_and_sums();
+        bool run = status == RUNNING && it < a.max_iters;
+        K6_TICK(10);
+        // ---- the steps --------------------------------------------------
+        while (run) {
+          const bool sp1n = p1n, bland = stall >= a.stall_limit;
+          // pricing: each column's reduced cost, eligibility and score,
+          // c_B (the phase-1 costs ab - bw, exactly, or c[basis]) . T[:, j]
+          T acc = T(0);
+#pragma unroll
+          for (int i = 0; i < MR; ++i) {
+            if (i < m) {
+              const bool ab = (abm >> i) & 1u, bw = (bwm >> i) & 1u;
+              const T c1 = ab ? (bw ? T(0) : T(1)) : (bw ? T(-1) : T(0));
+              const T ce = sp1n ? c1 : cBb[i];
+              acc = i == 0 ? __dmul_rn(ce, t[0]) : __fma_rn(ce, t[i], acc);
+            }
+          }
+          const T d = __dsub_rn(sp1n ? T(0) : cc, acc);
+          const T ad = fabs(d);
+          const bool elig = has && !inb && (fre ? ad > ct : (atu ? d : -d) > ct);
+          const T score = elig ? (bland ? -T(jc) : ad) : (bland ? T(-BIG) : T(-1));
+          T bv = has ? score : -INF;
+          int bj = has ? jc : INT_MAX;
+          K6_TICK(2);
+          best_of<CW>(bv, bj);
+          const bool anyq = __any_sync(FULL, elig);
+          K6_TICK(3);
+          // the winner's values and column, from its owner
+          const int qc = bj, owner = qc & 31;
+          const T zv = inb ? T(0) : (atu ? zup : zlo);
+          const T dq = __shfl_sync(FULL, d, owner), cq = __shfl_sync(FULL, cc, owner);
+          const T loq = __shfl_sync(FULL, lo, owner), hiq = __shfl_sync(FULL, hi, owner);
+          const T spanq = __shfl_sync(FULL, span, owner), zq = __shfl_sync(FULL, zv, owner);
+          const bool atuq = __shfl_sync(FULL, (int)atu, owner) != 0;
+          T alpha[MR];
+#pragma unroll
+          for (int i = 0; i < MR; ++i) alpha[i] = i < m ? __shfl_sync(FULL, t[i], owner) : T(0);
+          K6_TICK(4);
+          // the objective's nonbasic part, with the step's starting flags
+          // (in both phases, so its chain interleaves with the ratio test)
+          const T czv_all = col_sum<CW>(cz, nc);
+          const T czv = sp1n ? T(0) : czv_all;
+          K6_TICK(5);
+
+          // the ratio test: row rr's by its thread (REP: then every row's
+          // ratio in every thread); the least ratio
+          const T sigma = dq < T(0) ? T(1) : T(-1);  // up on d < 0
+          T xr = xB[0], lr = bl[0], hr = bh[0], ar = alpha[0];
+          if constexpr (REP) {
+#pragma unroll
+            for (int i = 1; i < RR; ++i) {
+              xr = i == rr ? xB[i] : xr;
+              lr = i == rr ? bl[i] : lr;
+              hr = i == rr ? bh[i] : hr;
+            }
+          }
+#pragma unroll
+          for (int i = 1; i < MR; ++i) ar = i == rr ? alpha[i] : ar;
+          const bool bwr = (bwm >> rr) & 1u, abr = (abm >> rr) & 1u;
+          const T eta = __dmul_rn(-sigma, ar);
+          const T ae = fabs(eta);
+          const bool ng = eta < T(0);
+          const T num = ng ? __dsub_rn(xr, abr ? hr : lr) : __dsub_rn(bwr ? lr : hr, xr);
+          const bool valid = ae > pt && !(ng ? bwr : abr);
+          // (every thread divides, an invalid row 1 by 1: no branch)
+          const T rd = div_rn(valid ? num : T(1), valid ? ae : T(1));
+          const T rq = valid ? rd : INF;
+          const T rc = rq < T(0) ? T(0) : rq;
+          T mn = INF, ratio_r, piv;
+          T pv = -INF;
+          int r = INT_MAX, p_col;
+          if constexpr (REP) {
+            // the ratios, and their minimum as a tree of fmin (exact,
+            // whatever the order; the sign of a zero minimum changes
+            // neither the tie nor the test)
+            T rat[RR], mt[RR];
+#pragma unroll
+            for (int i = 0; i < RR; ++i) {
+              rat[i] = __shfl_sync(FULL, rc, i);
+              mt[i] = i < m ? rat[i] : INF;
+            }
+#pragma unroll
+            for (int w = 1; w < RR; w <<= 1)
+#pragma unroll
+              for (int i = 0; i + w < RR; i += 2 * w) mt[i] = fmin(mt[i], mt[i + w]);
+            mn = mt[0];
+            K6_TICK(6);
+            // the least ratio and, among the rows tied with it, the one of
+            // largest |eta| (Bland: the lowest basic column), by a tree of
+            // `wins` (a total order)
+            const T tie = __dadd_rn(mn, ft);
+            T pk[RR];
+            int ik[RR];
+#pragma unroll
+            for (int i = 0; i < RR; ++i) {
+              const T aei = fabs(__dmul_rn(-sigma, alpha[i]));
+              const T pick = rat[i] <= tie ? (bland ? -T(basis[i]) : aei)
+                                           : (bland ? T(-BIG) : T(-1));
+              pk[i] = i < m ? pick : -INF;
+              ik[i] = i < m ? i : INT_MAX;
+            }
+#pragma unroll
+            for (int w = 1; w < RR; w <<= 1) {
+#pragma unroll
+              for (int i = 0; i + w < RR; i += 2 * w) {
+                const bool b2 = wins(pk[i + w], ik[i + w], pk[i], ik[i]);
+                pk[i] = b2 ? pk[i + w] : pk[i];
+                ik[i] = b2 ? ik[i + w] : ik[i];
+              }
+            }
+            pv = pk[0];
+            r = ik[0];
+            ratio_r = rat[0];
+            piv = alpha[0];
+            p_col = basis[0];
+#pragma unroll
+            for (int i = 1; i < RR; ++i) {
+              ratio_r = i == r ? rat[i] : ratio_r;
+              piv = i == r ? alpha[i] : piv;
+              p_col = i == r ? basis[i] : p_col;
+            }
+          } else {
+            mn = hasr ? rc : INF;
+#pragma unroll
+            for (int off = Gm / 2; off > 0; off >>= 1)
+              mn = fmin(mn, __shfl_xor_sync(FULL, mn, off));
+            K6_TICK(6);
+            const T tie = __dadd_rn(mn, ft);
+            if (hasr) {
+              pv = rc <= tie ? (bland ? -T(basis[0]) : ae) : (bland ? T(-BIG) : T(-1));
+              r = ri;
+            }
+            best_of<Gm>(pv, r);
+            ratio_r = __shfl_sync(FULL, rc, r);
+            piv = __shfl_sync(FULL, ar, r);
+            p_col = __shfl_sync(FULL, basis[0], r);
+          }
+          K6_TICK(7);
+
+          // the step's outcome, the bound flags, the objective watermark
+          const bool row_blocks = mn < spanq;
+          const T theta = row_blocks ? ratio_r : spanq;
+          const int code = p1n ? 1 : 0;  // INFEASIBLE = 1, OPTIMAL = 0
+          status = anyq ? (isfinite(theta) ? RUNNING : UNBOUNDED - code) : code;
+          const bool moves = status == RUNNING;
+          const bool do_pivot = moves && row_blocks, do_flip = moves && !row_blocks;
+          const bool leave_up =
+              __dmul_rn(-sigma, piv) < T(0) ? ((abm >> r) & 1u) : !((bwm >> r) & 1u);
+          const T newval = __dadd_rn(zq, __dmul_rn(sigma, theta));
+          {
+            const bool hp = has && jc == p_col, hq = has && jc == qc;
+            if (do_pivot) {
+              if (hp) {
+                atu = leave_up;
+                inb = false;
+              }
+              if (hq) inb = true;
+            } else if (hq) {
+              atu = atuq ^ do_flip;
+            }
+            const T zn = inb ? T(0) : (atu ? zup : zlo);
+            if ((do_pivot && hp) || hq) cz = __dmul_rn(cc, zn);
+          }
+          const T cur = p1n ? infeas : __dadd_rn(cbx, czv);
+          const bool progressed = cur < __dsub_rn(last_e, prog);
+          stall = progressed ? 0 : stall_e + 1;
+          last = cur < last_e ? cur : last_e;
+          p1 = p1n;
+          it += 1;
+          K6_TICK(8);
+
+          // the step: basic values along eta; a pivot's row takes q's value,
+          // bounds and cost, and every column its rank-1 update
+          // (selected, not branched; the next step's row sums before the
+          // rank-1 update, so that its divisions overlap them; past the
+          // last step they are unread)
+#pragma unroll
+          for (int i = 0; i < RR; ++i) {
+            const bool here = REP ? i == r : ri == r;
+            const T e = REP ? __dmul_rn(-sigma, alpha[i]) : eta;
+            const bool first = REP ? i == 0 : ri == 0;
+            T v = first ? __dadd_rn(xB[i], __dmul_rn(e, theta)) : __fma_rn(e, theta, xB[i]);
+            const bool pv_row = do_pivot && here;
+            v = pv_row ? newval : v;
+            basis[i] = pv_row ? qc : basis[i];
+            bl[i] = pv_row ? loq : bl[i];
+            bh[i] = pv_row ? hiq : bh[i];
+            xB[i] = moves && (!REP || i < m) ? v : xB[i];
+          }
+#pragma unroll
+          for (int i = 0; i < MR; ++i) cBb[i] = do_pivot && i == r ? cq : cBb[i];
+          K6_TICK(9);
+          run = status == RUNNING && it < a.max_iters;
+          rows_and_sums();
+          K6_TICK(10);
+          const T den = fabs(piv) > T(0) ? piv : T(1);
+          T tr = t[0];
+#pragma unroll
+          for (int i = 1; i < MR; ++i) tr = i == r ? t[i] : tr;
+          const T rj = div_rn(tr, den);
+#pragma unroll
+          for (int i = 0; i < MR; ++i) {
+            const T u = i == r ? rj : __fma_rn(-alpha[i], rj, t[i]);
+            t[i] = do_pivot && i < m ? u : t[i];
+          }
+          K6_TICK(9);
+        }
+        // ---- finish: x, the objective c . z ------------------------------
+        T zj = inb ? T(0) : (atu ? zup : zlo);
+#pragma unroll
+        for (int i = 0; i < MR; ++i) {
+          int bi;
+          T xi;
+          if constexpr (REP) {
+            bi = basis[i < RR ? i : 0];
+            xi = xB[i < RR ? i : 0];
+          } else {
+            bi = __shfl_sync(FULL, basis[0], i);
+            xi = __shfl_sync(FULL, xB[0], i);
+          }
+          zj = i < m && jc == bi ? xi : zj;
+        }
+        const T obj = col_chain<CW, true>(cc, zj, nc, [](T c, T z) { return __dmul_rn(c, z); },
+                                          [](T acc, T c, T z) { return __fma_rn(c, z, acc); });
+        const int lp_status = status == RUNNING ? ITER_LIMIT : status;
+        K6_TICK(11);
+        nodes += 1;
+        nodes_all += 1;
+        iters_all += it;
+
+        // ---- the B&B node: the most fractional integer column ------------
+        T fv = T(-1), fx = T(0);
+        int fj = INT_MAX;
+        if (jc < n) {
+          const T f = sint ? fabs(__dsub_rn(zj, rint(zj))) : T(0);
+          const bool w = frac_wins(f, jc, fv, fj);
+          fv = w ? f : fv;
+          fj = w ? jc : fj;
+          fx = w ? zj : fx;
+        }
+#pragma unroll
+        for (int off = CW / 2; off > 0; off >>= 1) {
+          const T ov = __shfl_xor_sync(FULL, fv, off);
+          const int oj = __shfl_xor_sync(FULL, fj, off);
+          const T ox = __shfl_xor_sync(FULL, fx, off);
+          const bool w = frac_wins(ov, oj, fv, fj);
+          fv = w ? ov : fv;
+          fj = w ? oj : fj;
+          fx = w ? ox : fx;
+        }
+
+        bool res1 = nodes > a.max_bnb_nodes || lp_status == ITER_LIMIT;
+        unbounded = lp_status == UNBOUNDED;
+        bool push = false;
+        T fl = T(0);
+        if (lp_status == OPTIMAL) {
+          const T bound = oint ? ceil(__dsub_rn(obj, INT_TOL)) : obj;
+          const bool pruned = bound >= __dsub_rn(best, tol);
+          const bool integral = fv <= INT_TOL;
+          const bool improves = obj < __dsub_rn(best, INT_TOL);
+          if (!pruned && integral && improves) best = obj;
+          const bool branch = !pruned && !integral;
+          const bool overflow = branch && sp1 + 2 > a.maxn;
+          res1 = res1 || overflow;
+          push = branch && !overflow;
+          fl = floor(__dadd_rn(fx, INT_TOL));
+        }
+        if (push) {
+          // the "up" child in the node's place, the "down" child on top,
+          // each thread its own columns
+          T* up_lo = stk_lo + (size_t)sp1 * n;
+          T* dn_lo = stk_lo + (size_t)(sp1 + 1) * n;
+          T* dn_hi = stk_hi + (size_t)(sp1 + 1) * n;
+          if (j < n) {
+            if (j == fj) up_lo[j] = __dadd_rn(fl, T(1));
+            dn_lo[j] = lo;
+            dn_hi[j] = j == fj ? fl : hi;
+          }
+          sp = sp1 + 2;
+        } else {
+          sp = sp1;
+        }
+        res_s = res1;
+        __syncwarp();  // the stack's rows, for the duplicate threads' reads
+        K6_TICK(12);
+      }
+      found = isfinite(best) && !res_s;
+    }
+    // the stage's value: the lane's result and its objective row's bound
+    if (alive && found) {
+      const T val = rint(a.is_min ? best : -best);
+      if (lane == 0) a.results[(size_t)b * k + jo] = (long long)val;
+      if (rr == mk + jo) {
+        if (a.is_min)
+          rhi = val;
+        else
+          rlo = val;
+      }
+    }
+    ips += active ? 1 : 0;
+    alive = alive && found;
+    resource = resource || res_s;
+  }
+  K6_CLOCK_STORE(lane == 0, b);
+  if (lane == 0) {
+    a.status[b] = resource ? LEX_RESOURCE : (alive ? LEX_OPTIMAL : LEX_INFEASIBLE);
+    a.ips[b] = ips;
+    a.nodes[b] = nodes_all;
+    a.iters[b] = iters_all;
+  }
+}
+
 using LexKernelFn = decltype(&lex_bnb_kernel<SHAPE_PACKED>);
+
+// the regs shape's instantiation for an LP of m rows and nc columns that it
+// takes: MR rows of registers, CW threads a column group
+LexKernelFn lex_regs_kernel_for(int m, int nc) {
+  if (nc <= 16 && m <= 4) return lex_bnb_regs_kernel<4, 16>;
+  return m <= 8 ? lex_bnb_regs_kernel<8, REGS_COLS> : lex_bnb_regs_kernel<REGS_ROWS, REGS_COLS>;
+}
 
 // The plan's launch configuration, after checking it: 0, or the CUDA error
 // the launch would meet.
@@ -447,6 +1104,14 @@ int lex_config(int shape, int m, int n, int batch, int C, int threads, int P,
                cudaStream_t stream, cudaLaunchConfig_t* cfg,
                cudaLaunchAttribute* attr, LexKernelFn* kern) {
   static bool raised[MAX_DEVICES][K5_N_SHAPES] = {};
+  if (shape == SHAPE_REGS) {  // a warp a lane and no shared memory
+    if (!regs_takes(m, n) || batch <= 0 || C != 1 || P < 1 || P > K5_MAX_PACK ||
+        threads != 32 * P)
+      return (int)cudaErrorInvalidValue;
+    *kern = lex_regs_kernel_for(m, n + m);
+    plan_config(SHAPE_PACKED, batch, 1, threads, P, 0, stream, cfg, attr);
+    return 0;
+  }
   const int err = check_plan(shape, m, n, batch, C, threads, P);
   if (err) return err;
   *kern = shape == SHAPE_PACKED    ? lex_bnb_kernel<SHAPE_PACKED>
@@ -462,7 +1127,7 @@ int lex_config(int shape, int m, int n, int batch, int C, int threads, int P,
 extern "C" {
 
 // A block's dynamic shared bytes under a plan (shape 0 packed, 1 block, 2
-// cluster, 3 global), for the wrapper's check of its own arithmetic.
+// cluster, 3 global, 4 regs), for the wrapper's check of its own arithmetic.
 long long lex_bnb_smem_bytes(int shape, int m, int n, int C, int P) {
   return (long long)lex_smem_bytes(shape, m, n, C, P);
 }
@@ -478,9 +1143,32 @@ int lex_bnb_max_clusters(int shape, int m, int n, int C, int threads, int P) {
   return err ? -err : active_clusters(kern, &cfg);
 }
 
+#ifdef K6_CLOCKS
+// Where a -DK6_CLOCKS build's regs lanes write their cycles by part (lane b
+// at K6_N_PARTS b), or null (none written); 0, or the CUDA error.
+int lex_bnb_set_clocks(void* p) {
+  unsigned long long* q = static_cast<unsigned long long*>(p);
+  return (int)cudaMemcpyToSymbol(k6_clocks, &q, sizeof(q));
+}
+#endif
+
+// The regs shape's kernel for an LP of m rows and n structural columns:
+// its registers a thread and its local (spilled) bytes a thread, as the
+// build left them; 0, or the CUDA error (an LP the shape does not take:
+// cudaErrorInvalidValue).
+int lex_bnb_regs_attrs(int m, int n, int* regs, int* local_bytes) {
+  if (!regs_takes(m, n)) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, lex_regs_kernel_for(m, n + m));
+  if (e != cudaSuccess) return (int)e;
+  *regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return 0;
+}
+
 // Launches K6 on `stream` as the wrapper's plan says: shape 0 (packed, P
 // lanes a block of 32 P threads), 1 (a block of `threads` a lane), 2 (a
-// cluster of C such blocks a lane) or 3 (global: shape 2 with the tableau
+// cluster of C such blocks a lane), 3 (global: shape 2 with the tableau
 // slices in `tab`, batch x C x m x pitch values, pitch = slice_of(n + m, C,
 // 0).pitch, and the node's rows in `rows`, batch x C x (3 (n + m) + n)
 // values; both null for the other shapes).  `stack` holds batch x 2 x maxn

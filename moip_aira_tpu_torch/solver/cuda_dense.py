@@ -201,6 +201,13 @@ class DenseLoopPlan:
         (0 but for the global shape)."""
         return self.C * self.m * self.slices[0].pitch if self.shape == "global" else 0
 
+    @classmethod
+    def pick(cls, m: int, nc: int, dtype, lanes: int, smem_cap: int, sms: int,
+             held) -> "DenseLoopPlan":
+        """The kernel's rule for ``lanes`` lanes (``dense_loop_plan``),
+        which ``plan_on`` applies on a card."""
+        return dense_loop_plan(m, nc, dtype, lanes, smem_cap, sms, held, cls)
+
     def kernel_smem_bytes(self, defines: tuple = ()) -> int:
         """The kernel's own count of the plan's shared bytes."""
         return _lib(defines).simplex_dense_smem_bytes(
@@ -419,11 +426,11 @@ def held(device: int, m: int, nc: int, dtype, cls=DenseLoopPlan) -> dict:
 
 @functools.lru_cache(maxsize=4096)
 def plan_on(device: int, m: int, nc: int, dtype, lanes: int, cls=DenseLoopPlan) -> DenseLoopPlan:
-    """``dense_loop_plan`` on card ``device``, for K5 or K6 (``cls``),
+    """The rule of K5 or K6 (``cls.pick``) on card ``device``,
     worked out once per shape, dtype, card and lane count."""
     smem, sms = device_limits(device)
     h = {} if packs(m, nc) else held(device, m, nc, dtype, cls)
-    return dense_loop_plan(m, nc, dtype, lanes, smem, sms, h, cls)
+    return cls.pick(m, nc, dtype, lanes, smem, sms, h)
 
 
 def device_index(dev: torch.device) -> int:

@@ -12,12 +12,15 @@ the CPU.  It is no port of a Pallas kernel: the JAX package runs this batch
 version is ``LexKernel``'s loop on CPU tensors, and ``LexKernel.__call__``
 on a CUDA device launches it through ``launch_lex_bnb``, once a call.
 
-The launch plan is K5's (``cuda_dense.dense_loop_plan``: ``packed``, a
-warp a lane; ``block``; ``cluster`` of C blocks, each a slice of the
+The launch plan (``lex_plan_for``) takes K6's own shape, ``regs`` (a warp
+a lane, P lanes a block, the node's whole LP in the warp's registers and
+no shared memory), for an LP of at most REGS_ROWS rows and REGS_COLS
+columns, one a thread (``regs_takes``: G3KP10).  Else the plan is K5's (``cuda_dense.dense_loop_plan``: ``packed``,
+a warp a lane; ``block``; ``cluster`` of C blocks, each a slice of the
 columns; last, ``global``, the slices in a global scratch) over the plans
 that fit K6's own shared bytes (``lex_bnb_smem_bytes``: K5's, and the
 node's rows, x, the warps' and the cluster's winners), so a plan that fits
-K5 may not fit K6.
+K5 may not fit K6.  K5 never takes ``regs``.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ import torch
 
 from moip_aira_tpu_torch.kernels.build import load
 from moip_aira_tpu_torch.solver.cuda_dense import (
-    K5_MAX_THREADS, SPLIT, DenseLoopPlan, _seg, check_bytes, check_tensor, dense_loop_plan,
-    dense_loop_smem_bytes, device_index, device_limits, plan_on, plans_that_fit,
+    K5_MAX_PACK, K5_MAX_THREADS, K5_PACK_LANES, SHAPES, SPLIT, DenseLoopPlan, _seg,
+    check_bytes, check_tensor, dense_loop_plan, dense_loop_smem_bytes, device_index,
+    device_limits, plan_on, plans_that_fit,
 )
 from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
 
@@ -42,16 +46,33 @@ from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
 KERNEL = "lex_bnb"
 #: bytes of a float64
 F64 = 8
+#: K6's shapes, by their code in csrc/lex_bnb.cu: K5's, then its own
+LEX_SHAPES = SHAPES + ("regs",)
+#: the regs shape's largest LP: rows (the registers of a thread's tableau
+#: column) and columns (one a thread of the warp)
+REGS_ROWS = 16
+REGS_COLS = 32
+
+
+def regs_takes(m: int, n: int) -> bool:
+    """Whether K6's regs shape takes an LP of m rows and n structural
+    columns: m <= REGS_ROWS and n + m <= REGS_COLS (``regs_takes`` of
+    csrc/lex_bnb.cu), the builds whose LP stays in registers with no
+    spilled byte."""
+    return 1 <= m <= REGS_ROWS and 0 <= n and n + m <= REGS_COLS
 
 
 def lex_bnb_smem_bytes(shape: str, m: int, n: int, C: int, P: int) -> int:
-    """A K6 block's dynamic shared bytes (``lex_layout`` of csrc/lex_bnb.cu),
-    for one lane (P lanes in the packed shape): K5's (float64), then the
-    node's rows c, lo and hi (n + m values each) and its x (n values), none
-    of them in the global shape, whose rows lie in the global scratch; the
-    warps' winners (eight warps of two values and an int32; none in the
-    packed shape) and on a cluster the C blocks' published winners (two
-    values and an int32 each), each array 16-byte aligned."""
+    """A K6 block's dynamic shared bytes (``lex_layout`` of csrc/lex_bnb.cu;
+    none in the regs shape), for one lane (P lanes in the packed shape):
+    K5's (float64), then the node's rows c, lo and hi (n + m values each)
+    and its x (n values), none of them in the global shape, whose rows lie
+    in the global scratch; the warps' winners (eight warps of two values and
+    an int32; none in the packed shape) and on a cluster the C blocks'
+    published winners (two values and an int32 each), each array 16-byte
+    aligned."""
+    if shape == "regs":
+        return 0
     nc = n + m
     glob = shape == "global"
     warps = 0 if shape == "packed" else K5_MAX_THREADS // 32
@@ -70,8 +91,23 @@ class LexPlan(DenseLoopPlan):
     KERNEL: ClassVar[str] = "K6"
 
     @property
+    def code(self) -> int:
+        return LEX_SHAPES.index(self.shape)
+
+    @property
+    def layout(self) -> str:
+        return f"{self.P} x T in registers" if self.shape == "regs" else super().layout
+
+    @property
     def smem_bytes(self) -> int:
         return lex_bnb_smem_bytes(self.shape, self.m, self.nc - self.m, self.C, self.P)
+
+    @classmethod
+    def pick(cls, m: int, nc: int, dtype, lanes: int, smem_cap: int, sms: int,
+             held) -> "LexPlan":
+        """K6's rule (``lex_plan_for``, float64), which
+        ``cuda_dense.plan_on`` applies on a card."""
+        return lex_plan_for(m, nc - m, lanes, smem_cap, sms, held)
 
     @property
     def row_values(self) -> int:
@@ -89,17 +125,32 @@ class LexPlan(DenseLoopPlan):
         )
 
 
+@functools.lru_cache(maxsize=None)
+def regs_plan(m: int, n: int, P: int = K5_PACK_LANES) -> LexPlan:
+    """K6's regs launch, P lanes (warps) a block; raises ValueError for an
+    LP it does not take."""
+    if not regs_takes(m, n) or not 1 <= P <= K5_MAX_PACK:
+        raise ValueError(f"K6's regs shape takes no LP of {m} rows and {n + m} columns, "
+                         f"{P} a block")
+    return LexPlan(m, n + m, F64, "regs", 1, 32 * P, P)
+
+
 def lex_plan_for(m: int, n: int, lanes: int, smem_cap: int, sms: int, held) -> LexPlan:
     """K6's launch for ``lanes`` lex lanes of an LP of m rows and n
-    structural columns, by K5's rule (``cuda_dense.dense_loop_plan``) over
-    the plans that fit K6's shared bytes; ``held[C]`` are the clusters of C
-    blocks (1: blocks) of each plan the card holds at once."""
+    structural columns: ``regs_plan`` where ``regs_takes`` the LP, else
+    K5's rule (``cuda_dense.dense_loop_plan``) over the plans that fit
+    K6's shared bytes; ``held[C]`` are the clusters of C blocks (1: blocks)
+    of each plan the card holds at once."""
+    if regs_takes(m, n):
+        return regs_plan(m, n)
     return dense_loop_plan(m, n + m, torch.float64, lanes, smem_cap, sms, held, LexPlan)
 
 
 def lex_plans_that_fit(m: int, n: int, smem_cap: int) -> list:
-    """Every plan K6 can launch for the shape."""
-    return plans_that_fit(m, n + m, torch.float64, smem_cap, LexPlan)
+    """Every plan K6 can launch for the shape: K5's that fit K6's shared
+    bytes, then regs at P = 1, 2, 4 and 8 where it takes the LP."""
+    out = plans_that_fit(m, n + m, torch.float64, smem_cap, LexPlan)
+    return out + ([regs_plan(m, n, P) for P in (1, 2, 4, 8)] if regs_takes(m, n) else [])
 
 
 class LexOut(NamedTuple):
@@ -119,6 +170,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lex_bnb_smem_bytes.restype = ctypes.c_longlong
     lib.lex_bnb_max_clusters.argtypes = [ci] * 6
     lib.lex_bnb_max_clusters.restype = ci
+    lib.lex_bnb_regs_attrs.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+    lib.lex_bnb_regs_attrs.restype = ci
     lib.lex_bnb_launch.argtypes = [
         vp, ci, ci, ci, ci,  # W, m, n, k, batch
         vp, vp, vp, vp, vp, vp, vp, vp, vp,  # rhs, perm, C, lb, ub, row_lb, row_ub, is_int, obj_integral
@@ -134,8 +187,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    return _bind(load(KERNEL))
+def _lib(defines: tuple = ()) -> ctypes.CDLL:
+    """K6's library (with extra ``-D`` flags: an instrumented variant beside
+    the production one)."""
+    return _bind(load(KERNEL, defines))
 
 
 def lex_plan(W: torch.Tensor, lanes: int) -> LexPlan:
@@ -144,6 +199,17 @@ def lex_plan(W: torch.Tensor, lanes: int) -> LexPlan:
     lane count)."""
     m, nc = W.shape
     return plan_on(device_index(W.device), m, nc, torch.float64, int(lanes), LexPlan)
+
+
+def regs_attrs(m: int, n: int) -> tuple:
+    """(registers a thread, local bytes a thread) of the regs shape's
+    kernel for an LP of m rows and n structural columns, as the build left
+    them (``cudaFuncGetAttributes``): no local byte means no spill."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = _lib().lex_bnb_regs_attrs(m, n, ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"K6's regs kernel for {m} x {n + m}: CUDA error {err}")
+    return regs.value, local.value
 
 
 def lex_plans(W: torch.Tensor) -> list:
@@ -156,14 +222,15 @@ def launch_lex_bnb(
     W: torch.Tensor, rhs, perm, C, lb, ub, row_lb, row_ub, is_int, obj_integral,
     is_min: bool, maxn: int, max_bnb_nodes: int, max_iters: int, feas_tol: float,
     cost_tol: float, pivot_tol: float, progress_tol: float, stall_limit: int,
-    plan: LexPlan | None = None, plan_launches: Counter | None = None,
+    plan: LexPlan | None = None, plan_launches: Counter | None = None, defines: tuple = (),
 ) -> LexOut:
     """K6 on the lanes (rhs (B, k) float64, perm (B, k) int64) of the
     problem whose system is W = [A; C | -I] (m, n + m), objectives C (k,
     n), bounds lb/ub (n), constraint rows' bounds row_lb/row_ub (m - k),
     integrality is_int (n) and obj_integral (k) (bool), all contiguous on
     W's card: ``LexOut``, on the card.  One launch on the current stream,
-    of ``plan`` (default: ``lex_plan(W, B)``), counted in LAUNCHES and, when
+    of ``plan`` (default: ``lex_plan(W, B)``; ``defines``: of the library
+    built with those ``-D`` flags), counted in LAUNCHES and, when
     given, in ``plan_launches`` by the plan's (shape, C, P); raises for CPU
     tensors, for inputs it refuses, for a plan of another shape and for a
     failed launch (a plan that does not fit is refused before it)."""
@@ -208,7 +275,7 @@ def launch_lex_bnb(
     index = device_index(dev)
     with torch.cuda.device(index) if index != torch.cuda.current_device() else nullcontext():
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().lex_bnb_launch(
+        err = _lib(tuple(defines)).lex_bnb_launch(
             W.data_ptr(), m, n, k, B,
             rhs.data_ptr(), perm.data_ptr(), C.data_ptr(), lb.data_ptr(), ub.data_ptr(),
             row_lb.data_ptr() if m > k else None, row_ub.data_ptr() if m > k else None,

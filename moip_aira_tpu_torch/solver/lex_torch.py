@@ -320,14 +320,19 @@ class LexKernel:
             return self._plain(rhs, perm)
 
     def _launch(self, rhs, perm):
-        """K6 on the batch: one launch, its outputs left on the card."""
+        """K6 on the batch: one launch, its outputs left on the card; a
+        launch on the regs shape counts ``lex.plan.regs``."""
         self._read(wait=False)
+        launched = Counter()  # the launch's plan, as launch_lex_bnb records it
         out = launch_lex_bnb(
             self.W, rhs, perm, self.C, self.lb, self.ub, self.row_lb, self.row_ub,
             self.is_int, self.obj_integral, self.is_min, self.maxn, self.max_bnb_nodes,
             self.lp_max_iters, FEAS_TOL, COST_TOL, PIVOT_TOL, PROGRESS_TOL, STALL_LIMIT,
-            plan_launches=self.plan_launches,
+            plan_launches=launched,
         )
+        self.plan_launches.update(launched)
+        if any(shape == "regs" for shape, _, _ in launched):
+            GLOBAL_TIMINGS.count("lex.plan.regs")
         self.launches += 1
         self.lane_nodes, self.lane_iters = out.nodes, out.iters
         done = torch.cuda.Event()

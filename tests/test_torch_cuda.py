@@ -580,10 +580,32 @@ def test_dp_kernel_refuses_bad_items(cuda_device):
     assert dp.launches == 0
 
 
-def lex_case(name, lanes, seed):
-    """``lanes`` lex requests of ``name``: the initial rhs and golden points
-    moved by -1..1, each under a random ordering."""
-    rng = np.random.default_rng(seed)
+#: generated 3-objective knapsacks (``utils.generate.kp_lp``, seed 1):
+#: name (rows x items) -> (items, capacity rows); their LPs, of 18, 20 and
+#: 26 columns, take K6's regs builds of 8, 16 and 16 rows
+LEX_GENERATED = {"KP6x12": (12, 3), "KP12x8": (8, 9), "KP16x10": (10, 13)}
+
+
+def lex_problem(name):
+    """An example problem, or one of LEX_GENERATED, and its points: the
+    golden front's, or for a generated one the CPU lex kernel's points at
+    the initial rhs under every ordering."""
+    import itertools
+    import tempfile
+
+    from moip_aira_tpu_torch.solver.lex_torch import make_lex_kernel
+    from moip_aira_tpu_torch.utils.generate import kp_lp
+
+    if name in LEX_GENERATED:
+        items, rows = LEX_GENERATED[name]
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, f"{name}.lp")
+            with open(path, "w") as fh:
+                fh.write(kp_lp(items, 3, 1, constraints=rows))
+            p = read_problem(path)
+        perms = np.array(list(itertools.permutations(range(p.objcnt))))
+        out = make_lex_kernel(p, device="cpu")(np.tile(p.initial_rhs(), (len(perms), 1)), perms)
+        return p, np.unique(out[1].numpy(), axis=0).astype(np.float64)
     p = read_problem(os.path.join(EX, f"{name}.lp"))
     gold = []
     with open(os.path.join(EX, f"{name}.out")) as fh:
@@ -591,7 +613,14 @@ def lex_case(name, lanes, seed):
             parts = line.split()
             if parts and all(t.lstrip("-").isdigit() for t in parts):
                 gold.append([float(t) for t in parts])
-    gold = np.array(gold)
+    return p, np.array(gold)
+
+
+def lex_case(name, lanes, seed):
+    """``lanes`` lex requests of ``name`` (``lex_problem``): the initial rhs
+    and its points moved by -1..1, each under a random ordering."""
+    rng = np.random.default_rng(seed)
+    p, gold = lex_problem(name)
     k = p.objcnt
     rhs = np.array([
         p.initial_rhs() if b == 0 else gold[rng.integers(len(gold))] + rng.integers(-1, 2, size=k)
@@ -612,8 +641,9 @@ def lex_outputs(kern, out):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "name,lanes,max_nodes_stack",
-    [("G2AP05", 32, 160), ("G3AP05", 32, 160), ("G3KP10", 5, 160), ("G3KP10", 32, 4)],
-    ids=["G2AP05", "G3AP05", "G3KP10", "G3KP10-stack4"],
+    [("G2AP05", 32, 160), ("G3AP05", 32, 160), ("G3KP10", 5, 160), ("G3KP10", 32, 4),
+     ("KP6x12", 8, 160), ("KP12x8", 6, 160), ("KP16x10", 3, 160)],
+    ids=["G2AP05", "G3AP05", "G3KP10", "G3KP10-stack4", "KP6x12", "KP12x8", "KP16x10"],
 )
 def test_lex_kernel_on_the_card_equals_the_cpu(cuda_device, name, lanes, max_nodes_stack):
     """The lex kernel on the card is one launch of K6 a call and no K5
@@ -636,7 +666,10 @@ def test_lex_kernel_on_the_card_equals_the_cpu(cuda_device, name, lanes, max_nod
             assert np.array_equal(a, b)
     assert kern.launches == LAUNCHES["lex_bnb"] - k6 == 2
     assert LAUNCHES["simplex_dense"] == k5 and kern.lp is None
-    assert sum(kern.plan_launches.values()) == 2
+    # G3KP10's 4 x 14 LPs and the generated knapsacks' fit a warp's
+    # registers, one column a thread: K6's regs shape; the assignments' 37
+    # and 38 columns K5's packed
+    assert kern.plan_launches == {("packed" if "AP" in name else "regs", 1, 4): 2}
     assert kern.host_syncs == 0
     assert not any(hasattr(kern, a) for a in ("bnb_steps", "lp_steps", "lane_pivots"))
     assert (kern.nodes, kern.iters) == (2 * cpu.nodes, 2 * cpu.iters)
@@ -645,14 +678,19 @@ def test_lex_kernel_on_the_card_equals_the_cpu(cuda_device, name, lanes, max_nod
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,lanes", [("G2AP05", 12), ("G3KP10", 6), ("2AP20", 8), ("2AP40", 2)])
+@pytest.mark.parametrize(
+    "name,lanes",
+    [("G2AP05", 12), ("G3AP05", 12), ("G3KP10", 6), ("KP6x12", 6), ("KP12x8", 6),
+     ("2AP20", 8), ("2AP40", 2)],
+)
 def test_lex_kernel_every_plan_equals_the_cpu(cuda_device, name, lanes):
     """K6 forced into every plan that fits (``cuda_lex.lex_plans``: a warp a
-    lane at P = 1, 2, 4 and 8, a block, clusters of 2 and 4 with the
-    tableau in shared and in global memory, at 2AP40 global clusters of 2,
-    4 and 8): every output of every lane, counts included, equal to the
-    CPU's, each plan one launch; a plan that fits K5 but not K6 raises
-    before launching."""
+    lane at P = 1, 2, 4 and 8 in shared memory, and in registers where the
+    LP has at most 16 rows and 32 columns, a block,
+    clusters of 2 and 4 with the tableau in shared and in global memory, at
+    2AP40 global clusters of 2, 4 and 8): every output of every lane,
+    counts included, equal to the CPU's, each plan one launch; a plan that
+    fits K5 but not K6 raises before launching."""
     from dataclasses import replace
 
     from moip_aira_tpu_torch.solver import cuda_lex
@@ -667,7 +705,8 @@ def test_lex_kernel_every_plan_equals_the_cpu(cuda_device, name, lanes):
     plans = cuda_lex.lex_plans(kern.W)
     assert {q.shape for q in plans} == {
         "2AP20": {"block", "cluster", "global"}, "2AP40": {"global"},
-    }.get(name, {"packed", "block"})
+        "G2AP05": {"packed", "block"}, "G3AP05": {"packed", "block"},
+    }.get(name, {"packed", "block", "regs"})
     if name == "2AP40":
         assert {q.C for q in plans} == {2, 4, 8}
 
@@ -696,6 +735,22 @@ def test_lex_kernel_every_plan_equals_the_cpu(cuda_device, name, lanes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(4, 10), (6, 20), (12, 16), (16, 16), (1, 0)],
+                         ids=["rows4-cols16", "rows8-cols32", "rows16-cols32", "rows16-full",
+                              "rows4-one"])
+def test_lex_regs_kernel_spills_nothing(cuda_device, m, n):
+    """Each build of K6's regs shape (one column a thread; its arrays of
+    4, 8 or 16 rows) keeps its LP in registers: no local byte, at most 255
+    registers a thread; an LP past 16 rows or 32 columns has no build."""
+    from moip_aira_tpu_torch.solver import cuda_lex
+
+    regs, local = cuda_lex.regs_attrs(m, n)
+    assert 0 < regs <= 255 and local == 0
+    with pytest.raises(RuntimeError):
+        cuda_lex.regs_attrs(m, 33 - m)
+
+
+@pytest.mark.cuda
 def test_lex_kernel_on_the_card_refuses_a_bad_perm_lane_by_lane(cuda_device):
     """A perm already on the card that names an objective outside [0, k)
     is not read on the host: K6 gives each such lane ``LEX_BAD_PERM``, no
@@ -704,7 +759,7 @@ def test_lex_kernel_on_the_card_refuses_a_bad_perm_lane_by_lane(cuda_device):
     from moip_aira_tpu_torch.solver import cuda_lex
     from moip_aira_tpu_torch.solver.lex_torch import LEX_BAD_PERM, make_lex_kernel
 
-    for name in ("G3AP05", "2AP20"):
+    for name in ("G3KP10", "G3AP05", "2AP20"):
         p, rhs, perm = lex_case(name, 6, seed=7)
         k = p.objcnt
         bad = perm.copy()

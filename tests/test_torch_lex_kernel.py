@@ -126,9 +126,14 @@ def test_seeded_lanes_match_lex_jax(name, lanes):
 #: (m, n) of the shapes K6's plan is held at: rows with the objective rows,
 #: structural columns
 SHAPES = {
-    "G3KP10": (4, 10), "G2AP05": (12, 25), "2AP20": (42, 400),
-    "2AP40": (82, 1600), "2AP60": (122, 3600),
+    "G3KP10": (4, 10), "G2AP05": (12, 25), "G3AP05": (13, 25), "3AP10": (23, 100),
+    "2AP20": (42, 400), "2AP40": (82, 1600), "2AP60": (122, 3600),
+    # the card tests' generated knapsacks (``utils.generate.kp_lp``, 3, 9
+    # and 13 capacity rows): the regs builds of 8 and 16 rows a column
+    "KP6x12": (6, 12), "KP12x8": (12, 8), "KP16x10": (16, 10),
 }
+#: the shapes whose LPs fit a warp's registers, one column a thread
+REGS = ("G3KP10", "KP6x12", "KP12x8", "KP16x10")
 #: an H100's opt-in shared bytes a block (232,448), and clusters it holds
 CAP = 232448
 HELD = {1: 132, 2: 66, 4: 33, 8: 16}
@@ -140,15 +145,27 @@ def seg(nbytes):
 
 @pytest.mark.parametrize("name", SHAPES)
 def test_lex_plan_counts_its_bytes_on_top_of_k5s(name):
-    """Every K6 plan is a K5 plan with K6's bytes added: per lane the
-    node's rows c, lo, hi and x (in shared memory but for the global
+    """Every K6 plan but regs is a K5 plan with K6's bytes added: per lane
+    the node's rows c, lo, hi and x (in shared memory but for the global
     shape), the warps' winners (not in the packed shape) and the cluster's
-    (split shapes); K6 fits no plan K5 does not."""
+    (split shapes); K6 fits no plan K5 does not.  The regs shape is K6's
+    alone, a warp a lane at P = 1, 2, 4 and 8, with no shared byte, where
+    the LP fits a warp's registers."""
     m, n = SHAPES[name]
     nc = n + m
     k5 = {(q.shape, q.C, q.P): q for q in cuda_dense.plans_that_fit(m, nc, F64, CAP)}
     k6 = cuda_lex.lex_plans_that_fit(m, n, CAP)
+    regs = [q for q in k6 if q.shape == "regs"]
+    k6 = [q for q in k6 if q.shape != "regs"]
     assert k6 and all((q.shape, q.C, q.P) in k5 for q in k6)
+    assert "regs" not in {q.shape for q in k5.values()}
+    assert [(q.P, q.threads, q.C) for q in regs] == (
+        [(P, 32 * P, 1) for P in (1, 2, 4, 8)] if name in REGS else []
+    )
+    for q in regs:
+        assert q.smem_bytes == cuda_lex.lex_bnb_smem_bytes("regs", m, n, 1, q.P) == 0
+        assert q.code == 4 and q.row_values == q.scratch_values == 0
+        assert q.layout == f"{q.P} x T in registers"
     for q in k6:
         extra = 0 if q.shape == "global" else 3 * seg(8 * nc) + seg(8 * n)
         if q.shape != "packed":
@@ -165,7 +182,14 @@ def test_lex_plan_counts_its_bytes_on_top_of_k5s(name):
 @pytest.mark.parametrize(
     "name,lanes,want",
     [
-        ("G3KP10", 32, ("packed", 1, 4)), ("G2AP05", 32, ("packed", 1, 4)),
+        # an LP of at most 16 rows and 32 columns takes K6's own regs
+        # shape, where K5 packs it; at 37 and 38 columns, more than a
+        # warp's threads, K5's packed
+        ("G3KP10", 2, ("regs", 1, 4)), ("G3KP10", 32, ("regs", 1, 4)),
+        ("KP6x12", 32, ("regs", 1, 4)), ("KP12x8", 32, ("regs", 1, 4)),
+        ("KP16x10", 32, ("regs", 1, 4)),
+        ("G2AP05", 32, ("packed", 1, 4)), ("G3AP05", 32, ("packed", 1, 4)),
+        ("3AP10", 2, ("packed", 1, 4)), ("3AP10", 32, ("packed", 1, 4)),
         ("2AP20", 32, ("cluster", 4, 1)), ("2AP20", 128, ("block", 1, 1)),
         # 2AP40's float64 slice on a cluster of 8 fits K5 (181,792 bytes) but
         # not with K6's rows: K6 takes global, the C of the fewest rounds
@@ -173,8 +197,10 @@ def test_lex_plan_counts_its_bytes_on_top_of_k5s(name):
     ],
 )
 def test_lex_plan_takes_k5s_rule(name, lanes, want):
-    """K6's plan is K5's rule over the plans that fit K6: a warp a lane
-    where K5 packs, a shared-memory plan where one fits, else global."""
+    """K6's plan is regs where the LP has at most 16 rows and 32 columns,
+    else K5's rule over the plans that fit K6: a warp a lane where K5 packs,
+    a shared-memory plan where one fits, else global.  K5 never takes
+    regs."""
     m, n = SHAPES[name]
     plan = cuda_lex.lex_plan_for(m, n, lanes, CAP, 132, HELD)
     assert isinstance(plan, cuda_lex.LexPlan) and plan.dsize == 8
@@ -182,10 +208,55 @@ def test_lex_plan_takes_k5s_rule(name, lanes, want):
     k5 = cuda_dense.dense_loop_plan(m, n + m, F64, lanes, CAP, 132, HELD)
     if name == "2AP40":
         assert (k5.shape, k5.C) == ("cluster", 8)
+    elif want[0] == "regs":
+        assert (k5.shape, k5.C, k5.P) == ("packed", 1, 4)
     else:
         assert (k5.shape, k5.C, k5.P) == want
-    with pytest.raises(ValueError):  # a plan no cluster of 8 holds
-        cuda_lex.lex_plan_for(m, n, lanes, 1024, 132, HELD)
+    if want[0] == "regs":  # no shared byte: any card's limit takes it
+        assert cuda_lex.lex_plan_for(m, n, lanes, 1024, 132, HELD) == plan
+    else:
+        with pytest.raises(ValueError):  # a plan no cluster of 8 holds
+            cuda_lex.lex_plan_for(m, n, lanes, 1024, 132, HELD)
+
+
+@pytest.mark.parametrize(
+    "m,n,takes",
+    [
+        (1, 0, True), (4, 10, True), (16, 16, True), (8, 24, True), (6, 20, True),
+        # a 33rd column, a 17th row, no row
+        (16, 17, False), (4, 29, False), (13, 25, False), (4, 61, False),
+        (17, 10, False), (17, 0, False), (0, 10, False),
+    ],
+)
+def test_lex_plan_refuses_regs_past_the_register_budget(m, n, takes, monkeypatch):
+    """The regs shape takes at most 16 rows (a thread's column of
+    registers) and 32 columns (one a thread); past those, K6's plan is
+    K5's rule and ``regs_plan`` raises, at every P; P past 8 raises.  The
+    rule a card applies (``cuda_dense.plan_on``, given an H100's limits)
+    is ``lex_plan_for``'s."""
+    assert cuda_lex.regs_takes(m, n) is takes
+    if m == 0:
+        return
+    plan = cuda_lex.lex_plan_for(m, n, 32, CAP, 132, HELD)
+    assert (plan.shape == "regs") is takes
+    if takes:
+        assert plan == cuda_lex.regs_plan(m, n)
+        assert plan in cuda_lex.lex_plans_that_fit(m, n, CAP)
+        with pytest.raises(ValueError):
+            cuda_lex.regs_plan(m, n, 16)
+    else:
+        assert plan == cuda_dense.dense_loop_plan(m, n + m, F64, 32, CAP, 132, HELD,
+                                                  cuda_lex.LexPlan)
+        for P in (1, 4, 8):
+            with pytest.raises(ValueError):
+                cuda_lex.regs_plan(m, n, P)
+    monkeypatch.setattr(cuda_dense, "device_limits", lambda device: (CAP, 132))
+    cuda_dense.plan_on.cache_clear()
+    try:
+        on_card = cuda_dense.plan_on(0, m, n + m, F64, 32, cuda_lex.LexPlan)
+    finally:
+        cuda_dense.plan_on.cache_clear()
+    assert on_card == cuda_lex.lex_plan_for(m, n, 32, CAP, 132, {})
 
 
 def test_backend_reports_the_lanes_counts():

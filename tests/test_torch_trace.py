@@ -207,6 +207,50 @@ def test_chrome_trace_holds_every_span_as_a_user_annotation(profiled):
     assert on_timeline == {name: got["counts"][name] for name in SPANS}
 
 
+def test_a_k6_launch_on_the_regs_shape_counts_once(recorder, monkeypatch):
+    """``LexKernel._launch`` counts ``lex.plan.regs`` once for each K6
+    launch that ``launch_lex_bnb`` records on the regs shape (G3KP10's
+    4 x 14 LPs), while the recorder is on, beside the ``lex.launch`` span;
+    the card's launch (K6's rule on an H100's limits, recorded as the
+    wrapper records it) and events are stood in for here."""
+    from moip_aira_tpu_torch.solver import cuda_lex, lex_torch
+
+    p = read_problem(os.path.join(EX, "G3KP10.lp"))
+    kern = lex_torch.make_lex_kernel(p, device="cpu")
+    plans = []
+
+    def launch(W, rhs, *args, plan=None, plan_launches=None):
+        m, nc = W.shape
+        plan = cuda_lex.lex_plan_for(m, nc - m, rhs.shape[0], 232448, 132, {})
+        plan_launches[plan.shape, plan.C, plan.P] += 1
+        plans.append(plan)
+        B = rhs.shape[0]
+        z = torch.zeros(B, dtype=torch.int64)
+        return cuda_lex.LexOut(z.int(), torch.zeros(B, kern.k, dtype=torch.int64), z.int(), z, z)
+
+    class Done:
+        def record(self, stream):
+            pass
+
+        def query(self):
+            return True
+
+    monkeypatch.setattr(lex_torch, "launch_lex_bnb", launch)
+    monkeypatch.setattr(lex_torch.torch.cuda, "Event", Done)
+    monkeypatch.setattr(lex_torch.torch.cuda, "current_stream", lambda dev: None)
+    rhs = torch.as_tensor(np.tile(p.initial_rhs(), (3, 1)), dtype=torch.float64)
+    perm = torch.tensor([[0, 1, 2]] * 3)
+    kern._launch(rhs, perm)
+    assert not recorder.counts
+    with trace.recording():
+        for _ in range(2):
+            with recorder.span("lex.launch"):
+                kern._launch(rhs, perm)
+    assert [(q.shape, q.P) for q in plans] == [("regs", 4)] * 3
+    assert recorder.counts == {"lex.launch": 2, "lex.plan.regs": 2}
+    assert kern.plan_launches == {("regs", 1, 4): 3} and kern.launches == 3
+
+
 def test_enable_records_without_a_profiler(recorder, monkeypatch):
     marks = []
     monkeypatch.setattr(trace, "record_function", lambda name: marks.append(name))
