@@ -1,16 +1,20 @@
 """The plain reference: each instance's exact nondominated set, worked out
-by enumeration in NumPy from the instance's own coefficients.
+in NumPy from the instance's own coefficients.
 
-It imports nothing of the program and takes nothing the program made.  At
-the benchmark's sizes every feasible solution can be listed: 2**n subsets of
-a knapsack, and n! assignments, which ``ap_points`` lists as every pairing of
-an assignment of the first half of the rows with one of the other half to
-the columns left.  A point is the vector of objective values of a solution;
-the front is the set of points no other point dominates.  ``weak=True``
-gives the weakly nondominated set instead (the points no other point beats
-in every objective), which is what a front looks like when the
-lexicographic stages that break ties are left out: ``control.py`` puts it
-in the program's place."""
+It imports nothing of the program and takes nothing the program made.  A
+knapsack's front comes from the dynamic programme over items in
+``reference_dp.py``, which reaches sizes whose 2**n subsets are too many to
+list; ``kp_points`` lists them all, for the tests that hold the programme
+to it.  An assignment's front is taken from its n! assignments, which
+``ap_points`` lists as every pairing of an assignment of the first half of
+the rows with one of the other half to the columns left.
+
+A point is the vector of objective values of a solution; the front is the
+set of points no other point dominates.  ``weak=True`` gives the weakly
+nondominated set instead (the points no other point beats in every
+objective), which is what a front looks like when the lexicographic stages
+that break ties are left out: ``control.py`` puts it in the program's
+place."""
 
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import itertools
 import re
 
 import numpy as np
+
+import reference_dp
 
 #: the largest grid ``nondominated`` marks points in; a larger range takes
 #: the pairwise test
@@ -118,12 +124,11 @@ def front(inst, weak: bool = False) -> np.ndarray:
     """The exact front (weak: the weakly nondominated set) of an
     ``instances.Instance``."""
     if inst.family == "knapsack":
-        pts = kp_points(inst.values, inst.weights, inst.capacity)
-    elif inst.family == "assignment":
-        pts = ap_points(inst.costs)
-    else:
-        raise ValueError(f"no reference for family {inst.family!r}")
-    return nondominated(pts, inst.sense, weak)
+        return reference_dp.kp_front(inst.values, inst.weights, inst.capacity, inst.sense,
+                                     weak)[0]
+    if inst.family == "assignment":
+        return nondominated(ap_points(inst.costs), inst.sense, weak)
+    raise ValueError(f"no reference for family {inst.family!r}")
 
 
 # -- the benchmark's own reading of the two families' LP text ----------------
