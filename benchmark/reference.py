@@ -1,13 +1,15 @@
 """The plain reference: each instance's exact nondominated set, worked out
-in NumPy from the instance's own coefficients.
+in NumPy or plain PyTorch from the instance's own coefficients.
 
 It imports nothing of the program and takes nothing the program made.  A
-knapsack's front comes from the dynamic programme over items in
-``reference_dp.py``, which reaches sizes whose 2**n subsets are too many to
-list; ``kp_points`` lists them all, for the tests that hold the programme
-to it.  An assignment's front is taken from its n! assignments, which
-``ap_points`` lists as every pairing of an assignment of the first half of
-the rows with one of the other half to the columns left.
+knapsack with two objectives takes the dense tables of ``reference_kp2.py``
+(PyTorch, on the card where there is one), which reach the sizes the
+program's own dense programme takes; any other knapsack takes the dynamic
+programme over items in ``reference_dp.py``, which reaches sizes whose 2**n
+subsets are too many to list.  ``kp_points`` lists them all, for the tests
+that hold both programmes to it.  An assignment's front is taken from its n!
+assignments, which ``ap_points`` lists as every pairing of an assignment of
+the first half of the rows with one of the other half to the columns left.
 
 A point is the vector of objective values of a solution; the front is the
 set of points no other point dominates.  ``weak=True`` gives the weakly
@@ -24,6 +26,7 @@ import re
 import numpy as np
 
 import reference_dp
+import reference_kp2
 
 #: the largest grid ``nondominated`` marks points in; a larger range takes
 #: the pairwise test
@@ -123,6 +126,9 @@ def _pairwise_front(P: np.ndarray, weak: bool, block: int = 512) -> np.ndarray:
 def front(inst, weak: bool = False) -> np.ndarray:
     """The exact front (weak: the weakly nondominated set) of an
     ``instances.Instance``."""
+    if inst.family == "knapsack" and inst.values.shape[0] == 2:
+        return reference_kp2.kp_front(inst.values, inst.weights, inst.capacity, inst.sense,
+                                      weak)
     if inst.family == "knapsack":
         return reference_dp.kp_front(inst.values, inst.weights, inst.capacity, inst.sense,
                                      weak)[0]

@@ -1,7 +1,9 @@
-"""The card's published peaks and K6's least time, the benchmark's copy.
+"""The card's published peaks and K6's and K4's least time, the benchmark's
+copy.
 
-The arithmetic is ``chip_smoke.lex_bound``'s as it stood when the benchmark
-was defined, over NVIDIA's published H100 SXM peaks (data sheet, 700 W):
+The arithmetic is ``chip_smoke.lex_bound``'s and, for K4's bytes,
+``chip_smoke.dp_bound``'s, as they stood when each entered the benchmark,
+over NVIDIA's published H100 SXM peaks (data sheet, 700 W):
 3.35 TB/s of HBM and 34 TFLOP/s of float64 outside the tensor cores.  A
 share of this bound is stated with the card's power limit beside it."""
 
@@ -28,6 +30,14 @@ def k6_flops(m: int, n: int, nodes: int, steps: int, pivots: int = 0) -> float:
     update.  The card reports no pivots, so a caller that passes none
     counts a lower bound."""
     return float(nodes + steps + pivots) * 2 * m * (n + m)
+
+
+def k4_bytes(table_cells: int, launches: int) -> float:
+    """Bytes K4 has to move over ``launches`` passes of a table of
+    ``table_cells`` int32 cells: each pass reads the previous table once and
+    writes the next once (the shifted read of a cell's source is a second
+    read of the same table, which the count leaves out)."""
+    return 8.0 * table_cells * launches
 
 
 def least_seconds(nbytes: float, flops: float) -> float:

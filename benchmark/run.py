@@ -57,7 +57,7 @@ import registry  # noqa: E402
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "moip_aira_tpu"})
 #: the counters a front's ``backend_stats`` gives that the readers sum
 COUNTERS = ("device_batches", "lanes", "kernel_launches", "nodes", "iters",
-            "path_nodes", "path_iters", "fallback_count")
+            "path_nodes", "path_iters", "fallback_count", "table_cells")
 
 
 def forbidden_modules() -> list:
@@ -244,7 +244,10 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool,
 
     import reference
 
+    t_ref = time.perf_counter()
     ref = {i: reference.front(insts[i]) for i in sorted({f.index for f in fronts})}
+    print(f"reference: {len(ref)} fronts in {time.perf_counter() - t_ref:.3f} s",
+          file=sys.stderr)
     checks, failed = judge.compare([(f.index, f.points) for f in fronts], ref)
     run = Run(setup_s, window_s, fronts, summary)
     kind = "per_layer" if trace else "end_to_end"
