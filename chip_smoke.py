@@ -115,9 +115,11 @@ node, one launch a batch) — and fails unless every phase passes:
               G3AP05 and G3KP10 with n_workers=2 against their goldens and
               IPs (24 / 57 / 109) and the CPU's totals of the lanes' nodes
               and LP steps (LEX_FRONTS), with K6 launched once a batch and
-              no other kernel; then one call of the lex kernel on 2AP20's
+              no other kernel; then one call of the lex kernel on G3KP10's
+              32 lanes (regs, then forced onto packed), on 3AP10's 18
+              (LEX_AP_BATCH: regs_block, then packed) and on 2AP20's
               32 lanes (the initial rhs and golden points under both
-              orderings) whose statuses, results, IPs and each lane's nodes
+              orderings), each one's statuses, results, IPs and each lane's nodes
               and LP steps must equal the same call's on the CPU, K6 timed
               on it (CUDA events, median of 5) beside the plain version
               (one run) and its bound (lex_bound); each row with seconds,
@@ -252,6 +254,11 @@ LEX_BATCH = ("2AP20", 32)
 #: m = 4), on K6's ``regs`` plan, the one its fronts and the mesh round
 #: launch, and forced onto K5's ``packed`` plan
 LEX_PACKED_BATCH = ("G3KP10", 32)
+#: the lex kernel's batch at the assignment cell's shape: 3AP10 (n = 100,
+#: m = 23, 23 x 123 LPs; ``ap_case``), 18 lanes (the benchmark's
+#: ``3ap10-lex-split32`` launches 18.07 a batch), on K6's ``regs_block``
+#: plan and forced onto K5's ``packed``
+LEX_AP_BATCH = ("3AP10", 18)
 #: the XLA engine's fronts at `real`'s widths: (instance, dtype, n_workers,
 #: the phase whose K1 front it stands beside)
 XLA_FRONTS = (
@@ -1764,6 +1771,33 @@ def lex_batch(p, lanes):
     return np.array(rhs), np.array(perm)
 
 
+def ap_case(lanes, seed=3):
+    """3AP10 (``utils.generate.ap_lp(10, 3, 1)``, the benchmark's
+    ``kirlik-3ap-n10`` seed 1) and ``lanes`` lex requests: the initial rhs,
+    then rhs that bound each objective between 30 and 89 or (0.4) leave it
+    free, each under a random ordering."""
+    import tempfile
+
+    import numpy as np
+
+    from moip_aira_tpu_torch.io import read_problem
+    from moip_aira_tpu_torch.utils.generate import ap_lp
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "3AP10.lp")
+        with open(path, "w") as fh:
+            fh.write(ap_lp(10, 3, 1))
+        p = read_problem(path)
+    rng = np.random.default_rng(seed)
+    rhs = np.array([
+        p.initial_rhs() if b == 0
+        else np.where(rng.random(3) < 0.4, np.inf, rng.integers(30, 90, size=3))
+        for b in range(lanes)
+    ])
+    perm = np.array([rng.permutation(3) for _ in range(lanes)])
+    return p, rhs, perm
+
+
 def lex_bound(m, n, k, nodes, iters, pivots):
     """The least time the card could take for one K6 launch on these
     lanes, in ms, and what sets it.  Bytes: W, each lane's rhs and perm,
@@ -1785,12 +1819,13 @@ def lex_bound(m, n, k, nodes, iters, pivots):
 
 
 def lex_batch_row(name, lanes, want_shape, smi, force=None):
-    """One call of the lex kernel on ``lex_batch``'s lanes of ``name`` on
-    the card (one K6 launch, in the plan ``want_shape`` when given; with
-    ``force``, a shape of K6's plans for the shape, its plan of four lanes
-    a block) and on the CPU, held lane by lane: status, results, IPs,
-    nodes and LP steps; then K6 timed beside its plain version and its
-    bound.  Returns the row and the largest difference (0)."""
+    """One call of the lex kernel on ``lex_batch``'s lanes of ``name``
+    (3AP10: ``ap_case``'s) on the card (one K6 launch, in the plan
+    ``want_shape`` when given; with ``force``, a shape of K6's plans for
+    the shape, its plan of four lanes a block) and on the CPU, held lane by
+    lane: status, results, IPs, nodes and LP steps; then K6 timed beside
+    its plain version and its bound.  Returns the row and the largest
+    difference (0)."""
     import numpy as np
     import torch
 
@@ -1801,8 +1836,11 @@ def lex_batch_row(name, lanes, want_shape, smi, force=None):
     from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
     from moip_aira_tpu_torch.solver.lex_torch import LEX_RESOURCE, make_lex_kernel
 
-    p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
-    rhs, perm = lex_batch(p, lanes)
+    if name == LEX_AP_BATCH[0]:
+        p, rhs, perm = ap_case(lanes)
+    else:
+        p = read_problem(os.path.join(EXAMPLES, f"{name}.lp"))
+        rhs, perm = lex_batch(p, lanes)
     outs, times, kerns, calls = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         kern = make_lex_kernel(p, device=dev)
@@ -1890,7 +1928,8 @@ def phase_lex():
     goldens, IPs and the CPU's totals of the lanes' nodes and LP steps,
     with K6 launched once a batch and no other kernel, then one batch of
     the lex kernel at the fronts' shape (G3KP10) on their plan (``regs``)
-    and on K5's ``packed``, and one at 2AP20, each held against the same
+    and on K5's ``packed``, one at the assignment cell's (3AP10) on its
+    plan (``regs_block``) and on ``packed``, and one at 2AP20, each held against the same
     call on the CPU lane by lane, counts included, and K6 timed on each
     beside its plain version.  Returns the rows, K6's entry of the kernel
     table (without its launches) and K6's launches on the fronts."""
@@ -1955,6 +1994,8 @@ def phase_lex():
     batches = {}
     for (name, lanes), want, force in ((LEX_PACKED_BATCH, "regs", None),
                                        (LEX_PACKED_BATCH, "packed", "packed"),
+                                       (LEX_AP_BATCH, "regs_block", None),
+                                       (LEX_AP_BATCH, "packed", "packed"),
                                        (LEX_BATCH, None, None)):
         row, err = lex_batch_row(name, lanes, want, smi, force)
         emit(row)
@@ -1962,6 +2003,7 @@ def phase_lex():
         batches[name, want] = (row, err)
     row = batches[LEX_BATCH[0], None][0]
     fronts_plan = {want: batches[LEX_PACKED_BATCH[0], want][0] for want in ("regs", "packed")}
+    ap_plan = {want: batches[LEX_AP_BATCH[0], want][0] for want in ("regs_block", "packed")}
     # no single PyTorch call computes a batch of lexicographic B&Bs
     entry = {
         "name": "lex_bnb",
@@ -1978,10 +2020,14 @@ def phase_lex():
         "library_ms": None,
         "plan": row["plan"],
         # the same numbers at the fronts' shape: on the plan the fronts and
-        # the mesh round launch (regs), and on K5's packed
+        # the mesh round launch (regs), and on K5's packed; and at the
+        # assignment cell's, on its plan (regs_block) and on packed
         **{want: {key: r[key] for key in (
             "instance", "lanes", "ms", "plain_ms", "bound_ms", "bound_by", "plan")}
            for want, r in fronts_plan.items()},
+        "3AP10": {want: {key: r[key] for key in (
+            "lanes", "ms", "plain_ms", "bound_ms", "us_per_path_iter", "plan")}
+                  for want, r in ap_plan.items()},
     }
     return rows, entry, k6_launches
 

@@ -42,7 +42,10 @@
 // launched K5 once a B&B step and read the device twice); an LP of at most
 // 16 rows and 32 columns runs in K6's own shape, regs (a warp a lane, the
 // whole LP in the warp's registers, each step a chain of shuffles with no
-// memory access and no barrier; below); a larger one on K5's plan, the
+// memory access and no barrier; below); one of at most 32 rows and 33 to
+// 128 columns in its second, regs_block (a block a lane, a warp a window of
+// 32 columns, the LP in registers, one block barrier a step; below); a
+// larger one on K5's plan, the
 // tableau and the node's rows in shared memory (packed: a warp a lane, each
 // warp its own B&B with no block barrier; block; cluster: each block a
 // slice of the columns, every decision taken from values every block holds
@@ -115,6 +118,59 @@ __host__ __device__ inline LexLayout lex_layout(int shape, int m, int n,
   return X;
 }
 
+// K6's second shape of its own, regs_block (lex_bnb_regs_block_kernel,
+// below): a block a lane, the LP in its registers
+constexpr int RB_ROWS = 32;                 // rows: a row a warp lane
+constexpr int RB_COLS = 4 * XLA_WINDOW;     // columns: one a thread, four warps
+constexpr int RB_MAX_WARPS = RB_COLS / 32;
+constexpr int SHAPE_REGS_BLOCK = 5;
+// a warp's winner in the step's buffer: its score, reduced cost, c, lo, hi,
+// span and nonbasic value, then the warp's window of the objective's
+// nonbasic sum (values), its index, any eligible and at-upper (int32); its
+// tableau column follows the values
+constexpr int RB_SLOT_T = 8;
+constexpr int RB_SLOT_I = 3;
+// a warp's copies of the rows' terms: t1, t2, x_B, the phase-1 and the
+// phase-2 costs (then its 32 columns' objective terms)
+constexpr int RB_WARP_ROWS = 5;
+
+// whether the regs_block shape takes an LP of m rows and n structural columns
+__host__ __device__ inline bool regs_block_takes(int m, int n) {
+  return m >= 1 && n >= 0 && m <= RB_ROWS && n + m > XLA_WINDOW && n + m <= RB_COLS;
+}
+
+// the rows of registers of the build that takes m rows
+__host__ __device__ inline int regs_block_rows(int m) { return m <= 24 ? 24 : RB_ROWS; }
+
+// The shape's shared memory, as byte offsets, each 16-byte aligned: the
+// steps' two buffers of NW winners (values with their columns, then
+// int32), the start's windows of the basic values (NW x MR), the finish's
+// objective windows and most fractional columns (v, x; j), and each warp's
+// copies of the rows' terms and of its columns' objective terms.  The
+// wrapper's lex_bnb_smem_bytes counts the same.
+struct RBLayout {
+  size_t win_t, win_i, xbw, fin_t, fin_i, rows, total;
+};
+
+__host__ __device__ inline RBLayout rb_layout(int m, int n) {
+  RBLayout X{};
+  size_t off = 0;
+  auto take_b = [&](size_t bytes) {
+    const size_t at = off;
+    off += seg(bytes);
+    return at;
+  };
+  const size_t nw = windows(n + m), mr = regs_block_rows(m);
+  X.win_t = take_b(2 * nw * (RB_SLOT_T + mr) * sizeof(double));
+  X.win_i = take_b(2 * nw * RB_SLOT_I * sizeof(int));
+  X.xbw = take_b(nw * mr * sizeof(double));
+  X.fin_t = take_b(nw * 3 * sizeof(double));
+  X.fin_i = take_b(nw * sizeof(int));
+  X.rows = take_b(nw * (RB_WARP_ROWS * mr + XLA_WINDOW) * sizeof(double));
+  X.total = off;
+  return X;
+}
+
 // a lane's shared bytes: K5's part, then K6's
 __host__ __device__ inline size_t lex_lane_bytes(int shape, int m, int n,
                                                  int C) {
@@ -127,6 +183,7 @@ __host__ __device__ inline size_t lex_lane_bytes(int shape, int m, int n,
 __host__ __device__ inline size_t lex_smem_bytes(int shape, int m, int n,
                                                  int C, int P) {
   if (shape == SHAPE_REGS) return 0;
+  if (shape == SHAPE_REGS_BLOCK) return rb_layout(m, n).total;
   const size_t lane = lex_lane_bytes(shape, m, n, C);
   return shape == SHAPE_PACKED ? (size_t)P * lane : lane;
 }
@@ -1089,6 +1146,552 @@ __global__ void __launch_bounds__(32 * K5_MAX_PACK)
   }
 }
 
+// ---- the regs_block shape: a block a lane, the node's LP in its registers ---
+//
+// K6's second shape of its own, for an LP of at most RB_ROWS rows and 33 to
+// RB_COLS columns (more than a warp's threads): one block of NW =
+// windows(nc) warps runs one lane, and every tableau value lives in the
+// block's registers.  Thread t holds column t - pad_low(nc), so warp w holds
+// exactly window w of the padded nc-long sums, and pad threads hold no
+// column (their terms are the +0s window_terms adds): the column's MR
+// tableau values, c, lo, hi, its values at each bound, the flip's length and
+// its flags.  Lane i of every warp holds row i's x_B, bounds and basic
+// column, so each warp computes the ratio test, its minimum and the row
+// pick (butterflies) and the row sums (chains from row 0) alike, with no
+// barrier; the rows' terms and costs c_B, and the warp's columns' objective
+// terms, which every thread of the warp reads in its chains, lie in the
+// warp's own copies in shared memory (a __syncwarp, no block barrier, and
+// the reads two values at a time).  The column axis crosses warps through
+// shared memory only: each step, each warp's arg-max winner publishes its
+// score, its values, its whole tableau column and its warp's window of the
+// objective's nonbasic sum into the step's buffer (two, by the step's
+// parity), before the step's one block barrier; then every thread takes
+// the same winner by `wins` and chains the NW window sums (xla_sum's
+// order).  A pivot's rank-1 update runs over all MR rows of the build
+// without a branch a row: the rows past m hold +0 in every column and are
+// never read.  A node's start
+// (the basic values' windows) and finish (the objective's windows and each
+// warp's most fractional column) take one barrier each.  No tableau value
+// goes to shared memory but the winner's column.  Every float64 operation
+// is dense_lane's for nc > 32, in its order and rounding, so each lane's
+// outputs and counts are the other shapes'.  MR (24 or 32) is compile-time,
+// so the tableau column stays in registers; NW is read from the block's
+// size, so one build serves 2, 3 and 4 warps.
+
+// t[r] (SET: t[r] = v) for a block-uniform r: one jump on r, not a chain
+// of selects
+template <bool SET, int MR>
+__device__ __forceinline__ double reg_at(double (&t)[MR], int r, double v = 0.0) {
+  switch (r) {
+#define RB_CASE(i)                                 \
+  case i:                                          \
+    if constexpr (i < MR) {                        \
+      if constexpr (SET) t[i] = v; else v = t[i];  \
+    }                                              \
+    break;
+    RB_CASE(0) RB_CASE(1) RB_CASE(2) RB_CASE(3) RB_CASE(4) RB_CASE(5) RB_CASE(6) RB_CASE(7)
+    RB_CASE(8) RB_CASE(9) RB_CASE(10) RB_CASE(11) RB_CASE(12) RB_CASE(13) RB_CASE(14)
+    RB_CASE(15) RB_CASE(16) RB_CASE(17) RB_CASE(18) RB_CASE(19) RB_CASE(20) RB_CASE(21)
+    RB_CASE(22) RB_CASE(23) RB_CASE(24) RB_CASE(25) RB_CASE(26) RB_CASE(27) RB_CASE(28)
+    RB_CASE(29) RB_CASE(30) RB_CASE(31)
+#undef RB_CASE
+  }
+  return v;
+}
+
+template <int MR>
+__global__ void __launch_bounds__(RB_COLS) lex_bnb_regs_block_kernel(const LexArgs a) {
+  using T = double;
+  constexpr int SLOT = RB_SLOT_T + MR;
+  constexpr int WROW = RB_WARP_ROWS * MR + XLA_WINDOW;  // a warp's rows and terms
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m = a.m, n = a.n, k = a.k, nc = n + m;
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x;
+  const int jc = (int)threadIdx.x - pad_low(nc);  // this thread's column
+  const bool has = jc >= 0 && jc < nc;           // ... that exists
+  const bool sint = has && jc < n && a.is_int[jc] != 0;
+  const int ri = lane;  // this thread's row
+  const bool hasr = ri < m;
+  const int rr = hasr ? ri : m - 1;
+  const int mk = m - k;
+  const T INF = T(INFINITY);
+  const T ft = a.ft, ct = a.ct, pt = a.pt, prog = a.prog;
+  const RBLayout X = rb_layout(m, n);
+  T* win_t = reinterpret_cast<T*>(smem + X.win_t);    // [2][nw][SLOT]
+  int* win_i = reinterpret_cast<int*>(smem + X.win_i);  // [2][nw][RB_SLOT_I]
+  T* xbw = reinterpret_cast<T*>(smem + X.xbw);        // [nw][MR]
+  T* fin_t = reinterpret_cast<T*>(smem + X.fin_t);    // [nw][3]: obj, v, x
+  int* fin_i = reinterpret_cast<int*>(smem + X.fin_i);  // [nw]: j
+  // this warp's copies of the rows' terms (t1, t2, x_B, the phase-1 and
+  // the phase-2 costs, MR each) and of its columns' objective terms
+  T* w_t1 = reinterpret_cast<T*>(smem + X.rows) + (size_t)warp * WROW;
+  T* w_t2 = w_t1 + MR;
+  T* w_xb = w_t2 + MR;
+  T* w_cb1 = w_xb + MR;
+  T* w_cbb = w_cb1 + MR;
+  T* w_cz = w_cbb + MR;
+  T* stk_lo = a.stack + (size_t)b * 2 * a.maxn * n;  // [maxn][n]
+  T* stk_hi = stk_lo + (size_t)a.maxn * n;
+
+  // row rr's logical bounds, as the regs shape keeps them
+  T rlo, rhi;
+  if (rr < mk) {
+    rlo = a.row_lb[rr];
+    rhi = a.row_ub[rr];
+  } else {
+    const T r = a.rhs[(size_t)b * k + (rr - mk)];
+    rlo = a.is_min ? -INF : r;
+    rhi = a.is_min ? r : INF;
+  }
+  if (threadIdx.x == 0)
+    for (int s = 0; s < k; ++s) a.results[(size_t)b * k + s] = 0;
+  bool bad_perm = false;
+  for (int s = 0; s < k; ++s) {
+    const long long j = a.perm[(size_t)b * k + s];
+    bad_perm = bad_perm || j < 0 || j >= k;
+  }
+  if (bad_perm) {
+    if (threadIdx.x == 0) {
+      a.status[b] = LEX_BAD_PERM;
+      a.ips[b] = 0;
+      a.nodes[b] = 0;
+      a.iters[b] = 0;
+    }
+    return;
+  }
+  bool alive = true, resource = false;
+  int ips = 0;
+  long long nodes_all = 0, iters_all = 0;
+  const T sgn = a.is_min ? T(1) : T(-1);
+  K6_CLOCK_DECL
+
+  for (int s = 0; s < k; ++s) {
+    const int jo = (int)a.perm[(size_t)b * k + s];
+    const bool active = alive && !resource;
+    bool found = false, res_s = false;
+    T best = INF;
+    if (active) {
+      const bool oint = a.obj_integral[jo] != 0;
+      const T tol = oint ? INT_TOL : REAL_TOL;
+      const int j = jc;
+      const bool st = has && j < n;  // a structural column
+      const T cc = st ? __dmul_rn(sgn, a.C[(size_t)jo * n + j]) : T(0);
+      // a logical column's bounds: its row's, from the row's lane
+      const int src = (has && j >= n) ? j - n : 0;
+      const T blo = __shfl_sync(FULL, rlo, src);
+      const T bhi = __shfl_sync(FULL, rhi, src);
+      if (st) {
+        stk_lo[j] = a.lb[j];
+        stk_hi[j] = a.ub[j];
+      }
+      int sp = 1, nodes = 0;
+      bool unbounded = false;
+      while (sp > 0 && !res_s && !unbounded) {
+        const int sp1 = sp - 1;
+        // ---- the node's LP: start -------------------------------------
+        // (each thread reads only its own column's stack entries)
+        const T lo = st ? stk_lo[(size_t)sp1 * n + j] : (has ? blo : T(0));
+        const T hi = st ? stk_hi[(size_t)sp1 * n + j] : (has ? bhi : T(0));
+        const bool lof = isfinite(lo), hif = isfinite(hi);
+        const bool fre = !lof && !hif;
+        const T zlo = lof ? lo : (hif ? hi : T(0));
+        const T zup = hif ? hi : zlo;
+        const T span = (lof && hif) ? __dsub_rn(hi, lo) : INF;
+        bool inb = !st, atu = st && !lof && hif;
+        const T z0 = st ? zlo : T(0);
+        w_cz[lane] = st ? __dmul_rn(cc, atu ? zup : zlo) : T(0);
+        if (ri < MR) w_cbb[ri] = T(0);  // the logical columns' costs
+        T t[MR];
+#pragma unroll
+        for (int i = 0; i < MR; ++i)
+          t[i] = (i < m && has) ? -__ldg(a.W + (size_t)i * nc + j) : T(0);
+        K6_TICK(0);
+        // x_B = -T0 z0 with T0 = -W: row rr's window `warp` by lane rr of
+        // each warp (window_terms over the rounded products, the pads +0),
+        // then each row's chain of its windows' sums
+        {
+          const T* Wr = a.W + (size_t)rr * nc;
+          const int jw0 = warp * XLA_WINDOW - pad_low(nc);
+          T acc = T(0);
+#pragma unroll
+          for (int l0 = 0; l0 < XLA_WINDOW; l0 += 8) {
+            T wv[8], zv[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int jj = jw0 + l0 + i;
+              wv[i] = (jj >= 0 && jj < nc) ? -__ldg(Wr + jj) : T(0);
+              zv[i] = __shfl_sync(FULL, z0, l0 + i);
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int jj = jw0 + l0 + i;
+              const T term = (jj >= 0 && jj < nc) ? __dmul_rn(wv[i], zv[i]) : T(0);
+              acc = l0 + i == 0 ? term : __dadd_rn(acc, term);
+            }
+          }
+          if (ri < MR) xbw[warp * MR + ri] = acc;
+        }
+        const int empty = __syncthreads_or(has && lo > __dadd_rn(hi, ft));
+        T xB, bl = rlo, bh = rhi;
+        int basis = n + rr;
+        {
+          T acc = xbw[rr];
+#pragma unroll
+          for (int w = 1; w < RB_MAX_WARPS; ++w)
+            if (w < nw) acc = __dadd_rn(acc, xbw[w * MR + rr]);
+          xB = -acc;
+        }
+
+        int status = empty ? INFEASIBLE : RUNNING;
+        int it = 0, stall = 0, stall_e = 0;
+        bool p1 = true, p1n = true;
+        T last = INF, last_e = INF, infeas = T(0), cbx = T(0);
+        unsigned bwm = 0, abm = 0;  // bit i: row i below / above its bounds
+        K6_TICK(1);
+
+        // the row terms of the step about to start, into the warp's copies
+        // (with each column's objective term, written before the call), its
+        // three row sums as chains from row 0, and its phase test
+        auto rows_and_sums = [&]() {
+          const bool bw = xB < __dsub_rn(bl, ft);
+          const bool ab = xB > __dadd_rn(bh, ft);
+          bwm = __ballot_sync(FULL, bw);
+          abm = __ballot_sync(FULL, ab);
+          if (ri < MR) {
+            w_t1[ri] = bw ? __dsub_rn(bl, xB) : T(0);
+            w_t2[ri] = ab ? __dsub_rn(xB, bh) : T(0);
+            w_xb[ri] = xB;
+            w_cb1[ri] = __dsub_rn(T(ab), T(bw));
+          }
+          __syncwarp();
+          const double2* p1v = reinterpret_cast<const double2*>(w_t1);
+          const double2* p2v = reinterpret_cast<const double2*>(w_t2);
+          const double2* pxv = reinterpret_cast<const double2*>(w_xb);
+          const double2* pcv = reinterpret_cast<const double2*>(w_cbb);
+          T s_lo = T(0), s_hi = T(0);
+#pragma unroll
+          for (int i2 = 0; i2 < MR / 2; ++i2) {
+            const double2 u = p1v[i2], v = p2v[i2], x = pxv[i2], c = pcv[i2];
+            const int i = 2 * i2;
+            if (i < m) {
+              s_lo = i == 0 ? u.x : __dadd_rn(s_lo, u.x);
+              s_hi = i == 0 ? v.x : __dadd_rn(s_hi, v.x);
+              cbx = i == 0 ? __dmul_rn(c.x, x.x) : __fma_rn(c.x, x.x, cbx);
+            }
+            if (i + 1 < m) {
+              s_lo = __dadd_rn(s_lo, u.y);
+              s_hi = __dadd_rn(s_hi, v.y);
+              cbx = __fma_rn(c.y, x.y, cbx);
+            }
+          }
+          infeas = __dadd_rn(s_lo, s_hi);
+          p1n = p1 && infeas > ft;  // phase 1 ends once feasible
+          const bool entered = p1 && !p1n;
+          stall_e = entered ? 0 : stall;
+          last_e = entered ? INF : last;
+        };
+        rows_and_sums();
+        bool run = status == RUNNING && it < a.max_iters;
+        int par = 0;  // the step's buffer
+        K6_TICK(10);
+        // ---- the steps --------------------------------------------------
+        while (run) {
+          const bool sp1n = p1n, bland = stall >= a.stall_limit;
+          // pricing: c_B (the phase-1 costs or c[basis], the warp's copy) .
+          // T[:, j], each column's reduced cost, eligibility and score
+          const double2* ce = reinterpret_cast<const double2*>(sp1n ? w_cb1 : w_cbb);
+          T acc = T(0);
+#pragma unroll
+          for (int i2 = 0; i2 < MR / 2; ++i2) {
+            const double2 c = ce[i2];
+            const int i = 2 * i2;
+            if (i < m) acc = i == 0 ? __dmul_rn(c.x, t[0]) : __fma_rn(c.x, t[i], acc);
+            if (i + 1 < m) acc = __fma_rn(c.y, t[i + 1], acc);
+          }
+          const T d = __dsub_rn(sp1n ? T(0) : cc, acc);
+          const T ad = fabs(d);
+          const bool elig = has && !inb && (fre ? ad > ct : (atu ? d : -d) > ct);
+          const T score = elig ? (bland ? -T(jc) : ad) : (bland ? T(-BIG) : T(-1));
+          T bv = has ? score : -INF;
+          int bj = has ? jc : INT_MAX;
+          K6_TICK(2);
+          // the warp's window of the objective's nonbasic part, with the
+          // step's starting flags: the chain over its 32 terms (pads +0)
+          T czw;
+          {
+            const double2* zc = reinterpret_cast<const double2*>(w_cz);
+            czw = T(0);
+#pragma unroll
+            for (int i2 = 0; i2 < XLA_WINDOW / 2; ++i2) {
+              const double2 u = zc[i2];
+              czw = i2 == 0 ? u.x : __dadd_rn(czw, u.x);
+              czw = __dadd_rn(czw, u.y);
+            }
+          }
+          K6_TICK(5);
+          best_of<XLA_WINDOW>(bv, bj);
+          const int anyw = __any_sync(FULL, elig);
+          K6_TICK(3);
+          // the warp's winner publishes its values and its column
+          T* slot = win_t + ((size_t)par * nw + warp) * SLOT;
+          int* sloti = win_i + ((size_t)par * nw + warp) * RB_SLOT_I;
+          if (has && jc == bj) {
+            slot[0] = bv;
+            slot[1] = d;
+            slot[2] = cc;
+            slot[3] = lo;
+            slot[4] = hi;
+            slot[5] = span;
+            slot[6] = inb ? T(0) : (atu ? zup : zlo);
+            slot[7] = czw;
+#pragma unroll
+            for (int i = 0; i < MR; i += 2)
+              *reinterpret_cast<double2*>(slot + RB_SLOT_T + i) = make_double2(t[i], t[i + 1]);
+            sloti[0] = bj;
+            sloti[1] = anyw;
+            sloti[2] = atu;
+          }
+          __syncthreads();
+          // the block's winner, in every thread; the objective's windows
+          const T* sw = win_t + (size_t)par * nw * SLOT;
+          const int* swi = win_i + (size_t)par * nw * RB_SLOT_I;
+          int wq = 0, qc = swi[0], anyq = swi[1];
+          T qv = sw[0], czv_all = sw[7];
+#pragma unroll
+          for (int w = 1; w < RB_MAX_WARPS; ++w) {
+            if (w < nw) {
+              const T ov = sw[w * SLOT];
+              const int oj = swi[w * RB_SLOT_I];
+              const bool bt = wins(ov, oj, qv, qc);
+              qv = bt ? ov : qv;
+              qc = bt ? oj : qc;
+              wq = bt ? w : wq;
+              anyq |= swi[w * RB_SLOT_I + 1];
+              czv_all = __dadd_rn(czv_all, sw[w * SLOT + 7]);
+            }
+          }
+          const T* qs = sw + wq * SLOT;
+          const T dq = qs[1], cq = qs[2], loq = qs[3], hiq = qs[4], spanq = qs[5], zq = qs[6];
+          const bool atuq = swi[wq * RB_SLOT_I + 2] != 0;
+          const T ar = qs[RB_SLOT_T + rr];
+          const T czv = sp1n ? T(0) : czv_all;
+          K6_TICK(4);
+
+          // the ratio test: row rr's by its lane; the least ratio
+          const T sigma = dq < T(0) ? T(1) : T(-1);  // up on d < 0
+          const bool bwr = (bwm >> rr) & 1u, abr = (abm >> rr) & 1u;
+          const T eta = __dmul_rn(-sigma, ar);
+          const T ae = fabs(eta);
+          const bool ng = eta < T(0);
+          const T num = ng ? __dsub_rn(xB, abr ? bh : bl) : __dsub_rn(bwr ? bl : bh, xB);
+          const bool valid = ae > pt && !(ng ? bwr : abr);
+          const T rd = div_rn(valid ? num : T(1), valid ? ae : T(1));
+          const T rq = valid ? rd : INF;
+          const T rc = rq < T(0) ? T(0) : rq;
+          T mn = hasr ? rc : INF;
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) mn = fmin(mn, __shfl_xor_sync(FULL, mn, off));
+          K6_TICK(6);
+          // the least ratio and, among the rows tied with it, the one of
+          // largest |eta| (Bland: the lowest basic column)
+          const T tie = __dadd_rn(mn, ft);
+          T pv = -INF;
+          int r = INT_MAX;
+          if (hasr) {
+            pv = rc <= tie ? (bland ? -T(basis) : ae) : (bland ? T(-BIG) : T(-1));
+            r = ri;
+          }
+          best_of<32>(pv, r);
+          const T ratio_r = __shfl_sync(FULL, rc, r);
+          const T piv = __shfl_sync(FULL, ar, r);
+          const int p_col = __shfl_sync(FULL, basis, r);
+          K6_TICK(7);
+
+          // the step's outcome, the bound flags, the objective watermark
+          const bool row_blocks = mn < spanq;
+          const T theta = row_blocks ? ratio_r : spanq;
+          const int code = p1n ? 1 : 0;  // INFEASIBLE = 1, OPTIMAL = 0
+          status = anyq ? (isfinite(theta) ? RUNNING : UNBOUNDED - code) : code;
+          const bool moves = status == RUNNING;
+          const bool do_pivot = moves && row_blocks, do_flip = moves && !row_blocks;
+          const bool leave_up =
+              __dmul_rn(-sigma, piv) < T(0) ? ((abm >> r) & 1u) : !((bwm >> r) & 1u);
+          const T newval = __dadd_rn(zq, __dmul_rn(sigma, theta));
+          {
+            const bool hp = has && jc == p_col, hq = has && jc == qc;
+            if (do_pivot) {
+              if (hp) {
+                atu = leave_up;
+                inb = false;
+              }
+              if (hq) inb = true;
+            } else if (hq) {
+              atu = atuq ^ do_flip;
+            }
+            const T zn = inb ? T(0) : (atu ? zup : zlo);
+            if ((do_pivot && hp) || hq) w_cz[lane] = __dmul_rn(cc, zn);
+          }
+          const T cur = p1n ? infeas : __dadd_rn(cbx, czv);
+          const bool progressed = cur < __dsub_rn(last_e, prog);
+          stall = progressed ? 0 : stall_e + 1;
+          last = cur < last_e ? cur : last_e;
+          p1 = p1n;
+          it += 1;
+          K6_TICK(8);
+
+          // the step: row rr's basic value along eta; a pivot's row takes
+          // q's value, bounds and cost (the warp's copy), and every column
+          // its rank-1 update (the next step's row sums before it, so that
+          // its division overlaps them; past the last step they are unread)
+          {
+            T v = ri == 0 ? __dadd_rn(xB, __dmul_rn(eta, theta)) : __fma_rn(eta, theta, xB);
+            const bool pv_row = do_pivot && ri == r;
+            v = pv_row ? newval : v;
+            basis = pv_row ? qc : basis;
+            bl = pv_row ? loq : bl;
+            bh = pv_row ? hiq : bh;
+            xB = moves ? v : xB;
+            if (pv_row) w_cbb[r] = cq;
+          }
+          K6_TICK(9);
+          run = status == RUNNING && it < a.max_iters;
+          rows_and_sums();
+          K6_TICK(10);
+          if (do_pivot) {
+            // every row of the build, then row r's value
+            const T rj = div_rn(reg_at<false>(t, r), fabs(piv) > T(0) ? piv : T(1));
+            const double2* al = reinterpret_cast<const double2*>(qs + RB_SLOT_T);
+#pragma unroll
+            for (int i2 = 0; i2 < MR / 2; ++i2) {
+              const double2 u = al[i2];
+              t[2 * i2] = __fma_rn(-u.x, rj, t[2 * i2]);
+              t[2 * i2 + 1] = __fma_rn(-u.y, rj, t[2 * i2 + 1]);
+            }
+            reg_at<true>(t, r, rj);
+          }
+          par ^= 1;
+          K6_TICK(9);
+        }
+        // ---- finish: x, the objective c . z ------------------------------
+        T zj = inb ? T(0) : (atu ? zup : zlo);
+#pragma unroll
+        for (int i = 0; i < MR; ++i) {
+          const int bi = __shfl_sync(FULL, basis, i);
+          zj = i < m && jc == bi ? w_xb[i] : zj;
+        }
+        // the warp's window of the rounded products c z, and its most
+        // fractional integer column
+        const T objw = col_sum<XLA_WINDOW>(has ? __dmul_rn(cc, zj) : T(0), XLA_WINDOW);
+        T fv = T(-1), fx = T(0);
+        int fj = INT_MAX;
+        if (st) {
+          const T f = sint ? fabs(__dsub_rn(zj, rint(zj))) : T(0);
+          const bool w = frac_wins(f, jc, fv, fj);
+          fv = w ? f : fv;
+          fj = w ? jc : fj;
+          fx = w ? zj : fx;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const T ov = __shfl_xor_sync(FULL, fv, off);
+          const int oj = __shfl_xor_sync(FULL, fj, off);
+          const T ox = __shfl_xor_sync(FULL, fx, off);
+          const bool w = frac_wins(ov, oj, fv, fj);
+          fv = w ? ov : fv;
+          fj = w ? oj : fj;
+          fx = w ? ox : fx;
+        }
+        if (lane == 0) {
+          fin_t[3 * warp] = objw;
+          fin_t[3 * warp + 1] = fv;
+          fin_t[3 * warp + 2] = fx;
+          fin_i[warp] = fj;
+        }
+        __syncthreads();
+        T obj = fin_t[0];
+        fv = fin_t[1];
+        fx = fin_t[2];
+        fj = fin_i[0];
+#pragma unroll
+        for (int w = 1; w < RB_MAX_WARPS; ++w) {
+          if (w < nw) {
+            obj = __dadd_rn(obj, fin_t[3 * w]);
+            const T ov = fin_t[3 * w + 1], ox = fin_t[3 * w + 2];
+            const int oj = fin_i[w];
+            const bool bt = frac_wins(ov, oj, fv, fj);
+            fv = bt ? ov : fv;
+            fj = bt ? oj : fj;
+            fx = bt ? ox : fx;
+          }
+        }
+        const int lp_status = status == RUNNING ? ITER_LIMIT : status;
+        K6_TICK(11);
+        nodes += 1;
+        nodes_all += 1;
+        iters_all += it;
+
+        // ---- the B&B node, as the regs shape's -----------------------------
+        bool res1 = nodes > a.max_bnb_nodes || lp_status == ITER_LIMIT;
+        unbounded = lp_status == UNBOUNDED;
+        bool push = false;
+        T fl = T(0);
+        if (lp_status == OPTIMAL) {
+          const T bound = oint ? ceil(__dsub_rn(obj, INT_TOL)) : obj;
+          const bool pruned = bound >= __dsub_rn(best, tol);
+          const bool integral = fv <= INT_TOL;
+          const bool improves = obj < __dsub_rn(best, INT_TOL);
+          if (!pruned && integral && improves) best = obj;
+          const bool branch = !pruned && !integral;
+          const bool overflow = branch && sp1 + 2 > a.maxn;
+          res1 = res1 || overflow;
+          push = branch && !overflow;
+          fl = floor(__dadd_rn(fx, INT_TOL));
+        }
+        if (push) {
+          // the "up" child in the node's place, the "down" child on top,
+          // each thread its own column
+          T* up_lo = stk_lo + (size_t)sp1 * n;
+          T* dn_lo = stk_lo + (size_t)(sp1 + 1) * n;
+          T* dn_hi = stk_hi + (size_t)(sp1 + 1) * n;
+          if (st) {
+            if (j == fj) up_lo[j] = __dadd_rn(fl, T(1));
+            dn_lo[j] = lo;
+            dn_hi[j] = j == fj ? fl : hi;
+          }
+          sp = sp1 + 2;
+        } else {
+          sp = sp1;
+        }
+        res_s = res1;
+        K6_TICK(12);
+      }
+      found = isfinite(best) && !res_s;
+    }
+    // the stage's value: the lane's result and its objective row's bound
+    if (alive && found) {
+      const T val = rint(a.is_min ? best : -best);
+      if (threadIdx.x == 0) a.results[(size_t)b * k + jo] = (long long)val;
+      if (rr == mk + jo) {
+        if (a.is_min)
+          rhi = val;
+        else
+          rlo = val;
+      }
+    }
+    ips += active ? 1 : 0;
+    alive = alive && found;
+    resource = resource || res_s;
+  }
+  K6_CLOCK_STORE(threadIdx.x == 0, b);
+  if (threadIdx.x == 0) {
+    a.status[b] = resource ? LEX_RESOURCE : (alive ? LEX_OPTIMAL : LEX_INFEASIBLE);
+    a.ips[b] = ips;
+    a.nodes[b] = nodes_all;
+    a.iters[b] = iters_all;
+  }
+}
+
 using LexKernelFn = decltype(&lex_bnb_kernel<SHAPE_PACKED>);
 
 // the regs shape's instantiation for an LP of m rows and nc columns that it
@@ -1096,6 +1699,12 @@ using LexKernelFn = decltype(&lex_bnb_kernel<SHAPE_PACKED>);
 LexKernelFn lex_regs_kernel_for(int m, int nc) {
   if (nc <= 16 && m <= 4) return lex_bnb_regs_kernel<4, 16>;
   return m <= 8 ? lex_bnb_regs_kernel<8, REGS_COLS> : lex_bnb_regs_kernel<REGS_ROWS, REGS_COLS>;
+}
+
+// the regs_block shape's instantiation for an LP of m rows that it takes
+LexKernelFn lex_regs_block_kernel_for(int m) {
+  return regs_block_rows(m) == 24 ? lex_bnb_regs_block_kernel<24>
+                                  : lex_bnb_regs_block_kernel<RB_ROWS>;
 }
 
 // The plan's launch configuration, after checking it: 0, or the CUDA error
@@ -1110,6 +1719,14 @@ int lex_config(int shape, int m, int n, int batch, int C, int threads, int P,
       return (int)cudaErrorInvalidValue;
     *kern = lex_regs_kernel_for(m, n + m);
     plan_config(SHAPE_PACKED, batch, 1, threads, P, 0, stream, cfg, attr);
+    return 0;
+  }
+  if (shape == SHAPE_REGS_BLOCK) {  // a block of windows(nc) warps a lane
+    if (!regs_block_takes(m, n) || batch <= 0 || C != 1 || P != 1 ||
+        threads != 32 * windows(n + m))
+      return (int)cudaErrorInvalidValue;
+    *kern = lex_regs_block_kernel_for(m);
+    plan_config(SHAPE_BLOCK, batch, 1, threads, 1, rb_layout(m, n).total, stream, cfg, attr);
     return 0;
   }
   const int err = check_plan(shape, m, n, batch, C, threads, P);
@@ -1127,7 +1744,8 @@ int lex_config(int shape, int m, int n, int batch, int C, int threads, int P,
 extern "C" {
 
 // A block's dynamic shared bytes under a plan (shape 0 packed, 1 block, 2
-// cluster, 3 global, 4 regs), for the wrapper's check of its own arithmetic.
+// cluster, 3 global, 4 regs, 5 regs_block), for the wrapper's check of its
+// own arithmetic.
 long long lex_bnb_smem_bytes(int shape, int m, int n, int C, int P) {
   return (long long)lex_smem_bytes(shape, m, n, C, P);
 }
@@ -1166,10 +1784,23 @@ int lex_bnb_regs_attrs(int m, int n, int* regs, int* local_bytes) {
   return 0;
 }
 
+// The regs_block shape's kernel for an LP of m rows and n structural
+// columns: its registers and local bytes a thread, as lex_bnb_regs_attrs.
+int lex_bnb_regs_block_attrs(int m, int n, int* regs, int* local_bytes) {
+  if (!regs_block_takes(m, n)) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, lex_regs_block_kernel_for(m));
+  if (e != cudaSuccess) return (int)e;
+  *regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return 0;
+}
+
 // Launches K6 on `stream` as the wrapper's plan says: shape 0 (packed, P
-// lanes a block of 32 P threads), 1 (a block of `threads` a lane), 2 (a
-// cluster of C such blocks a lane), 3 (global: shape 2 with the tableau
-// slices in `tab`, batch x C x m x pitch values, pitch = slice_of(n + m, C,
+// lanes a block of 32 P threads; 4, regs, the same), 1 (a block of
+// `threads` a lane; 5, regs_block, the same with 32 windows(n + m)
+// threads), 2 (a cluster of C such blocks a lane), 3 (global: shape 2 with
+// the tableau slices in `tab`, batch x C x m x pitch values, pitch = slice_of(n + m, C,
 // 0).pitch, and the node's rows in `rows`, batch x C x (3 (n + m) + n)
 // values; both null for the other shapes).  `stack` holds batch x 2 x maxn
 // x n values.  All pointers are device pointers: W (m, n + m), rhs (batch,

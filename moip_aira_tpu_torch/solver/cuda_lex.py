@@ -15,12 +15,17 @@ on a CUDA device launches it through ``launch_lex_bnb``, once a call.
 The launch plan (``lex_plan_for``) takes K6's own shape, ``regs`` (a warp
 a lane, P lanes a block, the node's whole LP in the warp's registers and
 no shared memory), for an LP of at most REGS_ROWS rows and REGS_COLS
-columns, one a thread (``regs_takes``: G3KP10).  Else the plan is K5's (``cuda_dense.dense_loop_plan``: ``packed``,
+columns, one a thread (``regs_takes``: G3KP10); then its second,
+``regs_block`` (a block of ``windows(nc)`` warps a lane, the node's whole
+LP in the block's registers, one column a thread, warp w holding window w
+of the padded sums), for an LP of at most REGS_BLOCK_ROWS rows and 33 to
+REGS_BLOCK_COLS columns (``regs_block_takes``: G2AP05, G3AP05, 3AP10).
+Else the plan is K5's (``cuda_dense.dense_loop_plan``: ``packed``,
 a warp a lane; ``block``; ``cluster`` of C blocks, each a slice of the
 columns; last, ``global``, the slices in a global scratch) over the plans
 that fit K6's own shared bytes (``lex_bnb_smem_bytes``: K5's, and the
 node's rows, x, the warps' and the cluster's winners), so a plan that fits
-K5 may not fit K6.  K5 never takes ``regs``.
+K5 may not fit K6.  K5 never takes ``regs`` or ``regs_block``.
 """
 
 from __future__ import annotations
@@ -36,9 +41,9 @@ import torch
 
 from moip_aira_tpu_torch.kernels.build import load
 from moip_aira_tpu_torch.solver.cuda_dense import (
-    K5_MAX_PACK, K5_MAX_THREADS, K5_PACK_LANES, SHAPES, SPLIT, DenseLoopPlan, _seg,
-    check_bytes, check_tensor, dense_loop_plan, dense_loop_smem_bytes, device_index,
-    device_limits, plan_on, plans_that_fit,
+    K5_MAX_PACK, K5_MAX_THREADS, K5_PACK_LANES, SHAPES, SPLIT, XLA_WINDOW, DenseLoopPlan,
+    _seg, check_bytes, check_tensor, dense_loop_plan, dense_loop_smem_bytes, device_index,
+    device_limits, plan_on, plans_that_fit, windows,
 )
 from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
 
@@ -47,11 +52,20 @@ KERNEL = "lex_bnb"
 #: bytes of a float64
 F64 = 8
 #: K6's shapes, by their code in csrc/lex_bnb.cu: K5's, then its own
-LEX_SHAPES = SHAPES + ("regs",)
+LEX_SHAPES = SHAPES + ("regs", "regs_block")
 #: the regs shape's largest LP: rows (the registers of a thread's tableau
 #: column) and columns (one a thread of the warp)
 REGS_ROWS = 16
 REGS_COLS = 32
+#: the regs_block shape's largest LP: rows (one a warp lane; the builds
+#: keep 24 or 32 registers of a thread's tableau column) and columns (one
+#: a thread of four warps); it takes more columns than a warp's threads
+REGS_BLOCK_ROWS = 32
+REGS_BLOCK_COLS = 4 * XLA_WINDOW
+#: the regs_block shape's winner in a step's buffer: values before its
+#: tableau column, and int32; a warp's copies of the rows' terms (t1, t2,
+#: x_B and the two costs)
+_RB_SLOT_T, _RB_SLOT_I, _RB_WARP_ROWS = 8, 3, 5
 
 
 def regs_takes(m: int, n: int) -> bool:
@@ -62,6 +76,18 @@ def regs_takes(m: int, n: int) -> bool:
     return 1 <= m <= REGS_ROWS and 0 <= n and n + m <= REGS_COLS
 
 
+def regs_block_takes(m: int, n: int) -> bool:
+    """Whether K6's regs_block shape takes an LP of m rows and n
+    structural columns: m <= REGS_BLOCK_ROWS and 33 <= n + m <=
+    REGS_BLOCK_COLS (``regs_block_takes`` of csrc/lex_bnb.cu)."""
+    return 1 <= m <= REGS_BLOCK_ROWS and 0 <= n and XLA_WINDOW < n + m <= REGS_BLOCK_COLS
+
+
+def regs_block_rows(m: int) -> int:
+    """The rows of registers of the regs_block build that takes m rows."""
+    return 24 if m <= 24 else REGS_BLOCK_ROWS
+
+
 def lex_bnb_smem_bytes(shape: str, m: int, n: int, C: int, P: int) -> int:
     """A K6 block's dynamic shared bytes (``lex_layout`` of csrc/lex_bnb.cu;
     none in the regs shape), for one lane (P lanes in the packed shape):
@@ -70,9 +96,21 @@ def lex_bnb_smem_bytes(shape: str, m: int, n: int, C: int, P: int) -> int:
     in the global scratch; the warps' winners (eight warps of two values and
     an int32; none in the packed shape) and on a cluster the C blocks'
     published winners (two values and an int32 each), each array 16-byte
-    aligned."""
+    aligned.  The regs_block shape keeps no tableau there, only its windows
+    and warps' copies (``rb_layout``): the steps' two buffers of each warp's
+    winner (8 values and its tableau column of ``regs_block_rows(m)``
+    values; 3 int32), the start's windows of the basic values (a warp's
+    ``regs_block_rows(m)``), the finish's windows of the objective and most
+    fractional columns (3 values and an int32 a warp), and each warp's
+    copies of the rows' five terms (``regs_block_rows(m)`` each) and of its
+    32 columns' objective terms."""
     if shape == "regs":
         return 0
+    if shape == "regs_block":
+        nw, mr = windows(n + m), regs_block_rows(m)
+        return sum(_seg(p) for p in (2 * nw * (_RB_SLOT_T + mr) * F64, 2 * nw * _RB_SLOT_I * 4,
+                                     nw * mr * F64, nw * 3 * F64, nw * 4,
+                                     nw * (_RB_WARP_ROWS * mr + XLA_WINDOW) * F64))
     nc = n + m
     glob = shape == "global"
     warps = 0 if shape == "packed" else K5_MAX_THREADS // 32
@@ -96,7 +134,11 @@ class LexPlan(DenseLoopPlan):
 
     @property
     def layout(self) -> str:
-        return f"{self.P} x T in registers" if self.shape == "regs" else super().layout
+        if self.shape == "regs":
+            return f"{self.P} x T in registers"
+        if self.shape == "regs_block":
+            return f"T in registers, {self.threads // 32} warps"
+        return super().layout
 
     @property
     def smem_bytes(self) -> int:
@@ -135,22 +177,36 @@ def regs_plan(m: int, n: int, P: int = K5_PACK_LANES) -> LexPlan:
     return LexPlan(m, n + m, F64, "regs", 1, 32 * P, P)
 
 
+@functools.lru_cache(maxsize=None)
+def regs_block_plan(m: int, n: int) -> LexPlan:
+    """K6's regs_block launch: a block of ``windows(n + m)`` warps a lane;
+    raises ValueError for an LP it does not take."""
+    if not regs_block_takes(m, n):
+        raise ValueError(f"K6's regs_block shape takes no LP of {m} rows and {n + m} columns")
+    return LexPlan(m, n + m, F64, "regs_block", 1, 32 * windows(n + m), 1)
+
+
 def lex_plan_for(m: int, n: int, lanes: int, smem_cap: int, sms: int, held) -> LexPlan:
     """K6's launch for ``lanes`` lex lanes of an LP of m rows and n
     structural columns: ``regs_plan`` where ``regs_takes`` the LP, else
-    K5's rule (``cuda_dense.dense_loop_plan``) over the plans that fit
-    K6's shared bytes; ``held[C]`` are the clusters of C blocks (1: blocks)
-    of each plan the card holds at once."""
+    ``regs_block_plan`` where ``regs_block_takes`` it, else K5's rule
+    (``cuda_dense.dense_loop_plan``) over the plans that fit K6's shared
+    bytes; ``held[C]`` are the clusters of C blocks (1: blocks) of each
+    plan the card holds at once."""
     if regs_takes(m, n):
         return regs_plan(m, n)
+    if regs_block_takes(m, n):
+        return regs_block_plan(m, n)
     return dense_loop_plan(m, n + m, torch.float64, lanes, smem_cap, sms, held, LexPlan)
 
 
 def lex_plans_that_fit(m: int, n: int, smem_cap: int) -> list:
     """Every plan K6 can launch for the shape: K5's that fit K6's shared
-    bytes, then regs at P = 1, 2, 4 and 8 where it takes the LP."""
+    bytes, then regs at P = 1, 2, 4 and 8 where it takes the LP, and
+    regs_block where it takes the LP."""
     out = plans_that_fit(m, n + m, torch.float64, smem_cap, LexPlan)
-    return out + ([regs_plan(m, n, P) for P in (1, 2, 4, 8)] if regs_takes(m, n) else [])
+    out += [regs_plan(m, n, P) for P in (1, 2, 4, 8)] if regs_takes(m, n) else []
+    return out + ([regs_block_plan(m, n)] if regs_block_takes(m, n) else [])
 
 
 class LexOut(NamedTuple):
@@ -172,6 +228,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lex_bnb_max_clusters.restype = ci
     lib.lex_bnb_regs_attrs.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
     lib.lex_bnb_regs_attrs.restype = ci
+    lib.lex_bnb_regs_block_attrs.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+    lib.lex_bnb_regs_block_attrs.restype = ci
     lib.lex_bnb_launch.argtypes = [
         vp, ci, ci, ci, ci,  # W, m, n, k, batch
         vp, vp, vp, vp, vp, vp, vp, vp, vp,  # rhs, perm, C, lb, ub, row_lb, row_ub, is_int, obj_integral
@@ -201,14 +259,17 @@ def lex_plan(W: torch.Tensor, lanes: int) -> LexPlan:
     return plan_on(device_index(W.device), m, nc, torch.float64, int(lanes), LexPlan)
 
 
-def regs_attrs(m: int, n: int) -> tuple:
-    """(registers a thread, local bytes a thread) of the regs shape's
-    kernel for an LP of m rows and n structural columns, as the build left
-    them (``cudaFuncGetAttributes``): no local byte means no spill."""
+def regs_attrs(m: int, n: int, shape: str = "regs") -> tuple:
+    """(registers a thread, local bytes a thread) of the kernel of the regs
+    shape (or of ``shape`` "regs_block") for an LP of m rows and n
+    structural columns, as the build left them (``cudaFuncGetAttributes``):
+    no local byte means no spill."""
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = _lib().lex_bnb_regs_attrs(m, n, ctypes.byref(regs), ctypes.byref(local))
+    attrs = {"regs": _lib().lex_bnb_regs_attrs,
+             "regs_block": _lib().lex_bnb_regs_block_attrs}[shape]
+    err = attrs(m, n, ctypes.byref(regs), ctypes.byref(local))
     if err != 0:
-        raise RuntimeError(f"K6's regs kernel for {m} x {n + m}: CUDA error {err}")
+        raise RuntimeError(f"K6's {shape} kernel for {m} x {n + m}: CUDA error {err}")
     return regs.value, local.value
 
 

@@ -321,7 +321,8 @@ class LexKernel:
 
     def _launch(self, rhs, perm):
         """K6 on the batch: one launch, its outputs left on the card; a
-        launch on the regs shape counts ``lex.plan.regs``."""
+        launch on the regs shape counts ``lex.plan.regs``, one on the
+        regs_block shape ``lex.plan.regs_block``."""
         self._read(wait=False)
         launched = Counter()  # the launch's plan, as launch_lex_bnb records it
         out = launch_lex_bnb(
@@ -331,8 +332,9 @@ class LexKernel:
             plan_launches=launched,
         )
         self.plan_launches.update(launched)
-        if any(shape == "regs" for shape, _, _ in launched):
-            GLOBAL_TIMINGS.count("lex.plan.regs")
+        for shape in ("regs", "regs_block"):
+            if any(s == shape for s, _, _ in launched):
+                GLOBAL_TIMINGS.count(f"lex.plan.{shape}")
         self.launches += 1
         self.lane_nodes, self.lane_iters = out.nodes, out.iters
         done = torch.cuda.Event()

@@ -668,8 +668,9 @@ def test_lex_kernel_on_the_card_equals_the_cpu(cuda_device, name, lanes, max_nod
     assert LAUNCHES["simplex_dense"] == k5 and kern.lp is None
     # G3KP10's 4 x 14 LPs and the generated knapsacks' fit a warp's
     # registers, one column a thread: K6's regs shape; the assignments' 37
-    # and 38 columns K5's packed
-    assert kern.plan_launches == {("packed" if "AP" in name else "regs", 1, 4): 2}
+    # and 38 columns a block's registers, two warps: K6's regs_block
+    assert kern.plan_launches == ({("regs_block", 1, 1): 2} if "AP" in name
+                                  else {("regs", 1, 4): 2})
     assert kern.host_syncs == 0
     assert not any(hasattr(kern, a) for a in ("bnb_steps", "lp_steps", "lane_pivots"))
     assert (kern.nodes, kern.iters) == (2 * cpu.nodes, 2 * cpu.iters)
@@ -686,7 +687,8 @@ def test_lex_kernel_on_the_card_equals_the_cpu(cuda_device, name, lanes, max_nod
 def test_lex_kernel_every_plan_equals_the_cpu(cuda_device, name, lanes):
     """K6 forced into every plan that fits (``cuda_lex.lex_plans``: a warp a
     lane at P = 1, 2, 4 and 8 in shared memory, and in registers where the
-    LP has at most 16 rows and 32 columns, a block,
+    LP has at most 16 rows and 32 columns, a block of warps with the LP in
+    registers where it has at most 32 rows and 33 to 128 columns, a block,
     clusters of 2 and 4 with the tableau in shared and in global memory, at
     2AP40 global clusters of 2, 4 and 8): every output of every lane,
     counts included, equal to the CPU's, each plan one launch; a plan that
@@ -705,7 +707,7 @@ def test_lex_kernel_every_plan_equals_the_cpu(cuda_device, name, lanes):
     plans = cuda_lex.lex_plans(kern.W)
     assert {q.shape for q in plans} == {
         "2AP20": {"block", "cluster", "global"}, "2AP40": {"global"},
-        "G2AP05": {"packed", "block"}, "G3AP05": {"packed", "block"},
+        "G2AP05": {"packed", "block", "regs_block"}, "G3AP05": {"packed", "block", "regs_block"},
     }.get(name, {"packed", "block", "regs"})
     if name == "2AP40":
         assert {q.C for q in plans} == {2, 4, 8}
@@ -748,6 +750,86 @@ def test_lex_regs_kernel_spills_nothing(cuda_device, m, n):
     assert 0 < regs <= 255 and local == 0
     with pytest.raises(RuntimeError):
         cuda_lex.regs_attrs(m, 33 - m)
+
+
+def ap3x10_case():
+    """A 3AP10 lex batch (3-objective assignment, n = 10: LPs of 23 rows and
+    123 columns, ``utils.generate.ap_lp`` seed 1, the benchmark's
+    ``instances.ap_lp`` arithmetic): the initial rhs, then rhs that bound
+    some objectives between 30 and 89, each under a random ordering; the
+    CPU's plain loop with a cap of 60 B&B nodes a stage (some lanes stop
+    there: LEX_RESOURCE), a few seconds."""
+    import tempfile
+
+    from moip_aira_tpu_torch.solver.lex_torch import make_lex_kernel
+    from moip_aira_tpu_torch.utils.generate import ap_lp
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "AP3x10.lp")
+        with open(path, "w") as fh:
+            fh.write(ap_lp(10, 3, 1))
+        p = read_problem(path)
+    rng = np.random.default_rng(3)
+    rhs = np.array([
+        p.initial_rhs() if b == 0
+        else np.where(rng.random(3) < 0.4, np.inf, rng.integers(30, 90, size=3))
+        for b in range(8)
+    ])
+    perm = np.array([rng.permutation(3) for _ in range(8)])
+    cpu = make_lex_kernel(p, max_bnb_nodes=60, device="cpu")
+    return p, rhs, perm, cpu, lex_outputs(cpu, cpu(rhs, perm))
+
+
+@pytest.mark.cuda
+def test_lex_kernel_3ap10_every_plan_equals_the_cpu(cuda_device):
+    """3AP10's 23 x 123 LPs take K6's regs_block (a block of four warps, a
+    window of 32 columns each) through the kernel's own plan, and every
+    plan that fits (regs_block; a warp a lane at P = 1, 2 and 4, the
+    shared bytes of 8 lanes past an H100's; a block; a cluster of 2 with
+    the tableau in shared and in global memory)
+    gives every lane's status, results, IPs, nodes and LP steps
+    equal to the CPU's plain loop, node cap included."""
+    from moip_aira_tpu_torch.solver import cuda_lex
+    from moip_aira_tpu_torch.solver.lex_torch import LEX_OPTIMAL, LEX_RESOURCE, make_lex_kernel
+
+    p, rhs, perm, cpu, want = ap3x10_case()
+    assert {LEX_OPTIMAL, LEX_RESOURCE} <= set(want[0].tolist())
+    kern = make_lex_kernel(p, max_bnb_nodes=60, device=cuda_device)
+    for a, b in zip(lex_outputs(kern, kern(rhs, perm)), want):
+        assert np.array_equal(a, b)
+    assert kern.plan_launches == {("regs_block", 1, 1): 1}
+    plans = cuda_lex.lex_plans(kern.W)
+    assert {("regs_block", 1, 1), ("packed", 1, 1), ("packed", 1, 4), ("block", 1, 1),
+            ("cluster", 2, 1)} <= {(q.shape, q.C, q.P) for q in plans}
+    args = [torch.as_tensor(rhs, device=cuda_device), torch.as_tensor(perm, device=cuda_device)]
+    for plan in plans:
+        out = cuda_lex.launch_lex_bnb(
+            kern.W, *args, kern.C, kern.lb, kern.ub, kern.row_lb, kern.row_ub, kern.is_int,
+            kern.obj_integral, kern.is_min, kern.maxn, kern.max_bnb_nodes, cpu.lp.max_iters,
+            cpu.lp.feas_tol, cpu.lp.cost_tol, cpu.lp.pivot_tol, cpu.lp.progress_tol,
+            cpu.lp.stall_limit, plan=plan,
+        )
+        torch.cuda.synchronize()
+        for a, b, f in zip([t.cpu().numpy() for t in out], want, out._fields):
+            assert np.array_equal(a, b), (plan, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(23, 100), (12, 25), (24, 104), (32, 1), (32, 96)],
+                         ids=["rows24-3ap10", "rows24-g2ap05", "rows24-cols128", "rows32-cols33",
+                              "rows32-cols128"])
+def test_lex_regs_block_kernel_spills_nothing(cuda_device, m, n):
+    """Each build of K6's regs_block shape (one column a thread, a row a
+    warp lane; its arrays of 24 or 32 rows) keeps its LP in registers: no
+    local byte, at most 255 registers a thread; an LP past 32 rows or 128
+    columns, or of 32 columns or fewer, has no build."""
+    from moip_aira_tpu_torch.solver import cuda_lex
+
+    regs, local = cuda_lex.regs_attrs(m, n, "regs_block")
+    assert 0 < regs <= 255 and local == 0
+    for bad in ((m, 129 - m), (33, n), (m, 32 - m) if m < 32 else (1, 31)):
+        with pytest.raises(RuntimeError):
+            cuda_lex.regs_attrs(*bad, "regs_block")
 
 
 @pytest.mark.cuda

@@ -134,6 +134,9 @@ SHAPES = {
 }
 #: the shapes whose LPs fit a warp's registers, one column a thread
 REGS = ("G3KP10", "KP6x12", "KP12x8", "KP16x10")
+#: the shapes whose LPs fit a block's registers, one column a thread: at
+#: most 32 rows, 33 to 128 columns
+REGS_BLOCK = ("G2AP05", "G3AP05", "3AP10")
 #: an H100's opt-in shared bytes a block (232,448), and clusters it holds
 CAP = 232448
 HELD = {1: 132, 2: 66, 4: 33, 8: 16}
@@ -150,15 +153,17 @@ def test_lex_plan_counts_its_bytes_on_top_of_k5s(name):
     shape), the warps' winners (not in the packed shape) and the cluster's
     (split shapes); K6 fits no plan K5 does not.  The regs shape is K6's
     alone, a warp a lane at P = 1, 2, 4 and 8, with no shared byte, where
-    the LP fits a warp's registers."""
+    the LP fits a warp's registers; so is regs_block, a block of one warp a
+    window of 32 columns a lane, where the LP fits a block's registers."""
     m, n = SHAPES[name]
     nc = n + m
     k5 = {(q.shape, q.C, q.P): q for q in cuda_dense.plans_that_fit(m, nc, F64, CAP)}
     k6 = cuda_lex.lex_plans_that_fit(m, n, CAP)
     regs = [q for q in k6 if q.shape == "regs"]
-    k6 = [q for q in k6 if q.shape != "regs"]
+    block = [q for q in k6 if q.shape == "regs_block"]
+    k6 = [q for q in k6 if q.shape not in ("regs", "regs_block")]
     assert k6 and all((q.shape, q.C, q.P) in k5 for q in k6)
-    assert "regs" not in {q.shape for q in k5.values()}
+    assert not {"regs", "regs_block"} & {q.shape for q in k5.values()}
     assert [(q.P, q.threads, q.C) for q in regs] == (
         [(P, 32 * P, 1) for P in (1, 2, 4, 8)] if name in REGS else []
     )
@@ -166,6 +171,13 @@ def test_lex_plan_counts_its_bytes_on_top_of_k5s(name):
         assert q.smem_bytes == cuda_lex.lex_bnb_smem_bytes("regs", m, n, 1, q.P) == 0
         assert q.code == 4 and q.row_values == q.scratch_values == 0
         assert q.layout == f"{q.P} x T in registers"
+    assert [(q.P, q.threads, q.C) for q in block] == (
+        [(1, 32 * -(-nc // 32), 1)] if name in REGS_BLOCK else []
+    )
+    for q in block:
+        assert q.smem_bytes == cuda_lex.lex_bnb_smem_bytes("regs_block", m, n, 1, 1) > 0
+        assert q.code == 5 and q.row_values == q.scratch_values == 0
+        assert q.layout == f"T in registers, {q.threads // 32} warps"
     for q in k6:
         extra = 0 if q.shape == "global" else 3 * seg(8 * nc) + seg(8 * n)
         if q.shape != "packed":
@@ -183,13 +195,14 @@ def test_lex_plan_counts_its_bytes_on_top_of_k5s(name):
     "name,lanes,want",
     [
         # an LP of at most 16 rows and 32 columns takes K6's own regs
-        # shape, where K5 packs it; at 37 and 38 columns, more than a
-        # warp's threads, K5's packed
+        # shape, where K5 packs it; at 37, 38 and 123 columns, more than a
+        # warp's threads, and at most 32 rows K6's own regs_block, a block
+        # of 2 or 4 warps, where K5 packs it too
         ("G3KP10", 2, ("regs", 1, 4)), ("G3KP10", 32, ("regs", 1, 4)),
         ("KP6x12", 32, ("regs", 1, 4)), ("KP12x8", 32, ("regs", 1, 4)),
         ("KP16x10", 32, ("regs", 1, 4)),
-        ("G2AP05", 32, ("packed", 1, 4)), ("G3AP05", 32, ("packed", 1, 4)),
-        ("3AP10", 2, ("packed", 1, 4)), ("3AP10", 32, ("packed", 1, 4)),
+        ("G2AP05", 32, ("regs_block", 1, 1)), ("G3AP05", 32, ("regs_block", 1, 1)),
+        ("3AP10", 2, ("regs_block", 1, 1)), ("3AP10", 32, ("regs_block", 1, 1)),
         ("2AP20", 32, ("cluster", 4, 1)), ("2AP20", 128, ("block", 1, 1)),
         # 2AP40's float64 slice on a cluster of 8 fits K5 (181,792 bytes) but
         # not with K6's rows: K6 takes global, the C of the fewest rounds
@@ -198,9 +211,10 @@ def test_lex_plan_counts_its_bytes_on_top_of_k5s(name):
 )
 def test_lex_plan_takes_k5s_rule(name, lanes, want):
     """K6's plan is regs where the LP has at most 16 rows and 32 columns,
-    else K5's rule over the plans that fit K6: a warp a lane where K5 packs,
+    regs_block where it has at most 32 rows and 33 to 128 columns, else
+    K5's rule over the plans that fit K6: a warp a lane where K5 packs,
     a shared-memory plan where one fits, else global.  K5 never takes
-    regs."""
+    regs or regs_block."""
     m, n = SHAPES[name]
     plan = cuda_lex.lex_plan_for(m, n, lanes, CAP, 132, HELD)
     assert isinstance(plan, cuda_lex.LexPlan) and plan.dsize == 8
@@ -208,11 +222,13 @@ def test_lex_plan_takes_k5s_rule(name, lanes, want):
     k5 = cuda_dense.dense_loop_plan(m, n + m, F64, lanes, CAP, 132, HELD)
     if name == "2AP40":
         assert (k5.shape, k5.C) == ("cluster", 8)
-    elif want[0] == "regs":
+    elif want[0] in ("regs", "regs_block"):
         assert (k5.shape, k5.C, k5.P) == ("packed", 1, 4)
     else:
         assert (k5.shape, k5.C, k5.P) == want
-    if want[0] == "regs":  # no shared byte: any card's limit takes it
+    if want[0] in ("regs", "regs_block"):
+        # no shared byte, or a few KB within any card's default 48 KB a
+        # block: the card's opt-in limit does not enter the rule
         assert cuda_lex.lex_plan_for(m, n, lanes, 1024, 132, HELD) == plan
     else:
         with pytest.raises(ValueError):  # a plan no cluster of 8 holds
@@ -244,9 +260,10 @@ def test_lex_plan_refuses_regs_past_the_register_budget(m, n, takes, monkeypatch
         assert plan in cuda_lex.lex_plans_that_fit(m, n, CAP)
         with pytest.raises(ValueError):
             cuda_lex.regs_plan(m, n, 16)
-    else:
-        assert plan == cuda_dense.dense_loop_plan(m, n + m, F64, 32, CAP, 132, HELD,
-                                                  cuda_lex.LexPlan)
+    else:  # past the regs shape: regs_block where it takes the LP, else K5's rule
+        assert plan == (cuda_lex.regs_block_plan(m, n) if cuda_lex.regs_block_takes(m, n)
+                        else cuda_dense.dense_loop_plan(m, n + m, F64, 32, CAP, 132, HELD,
+                                                        cuda_lex.LexPlan))
         for P in (1, 4, 8):
             with pytest.raises(ValueError):
                 cuda_lex.regs_plan(m, n, P)
@@ -257,6 +274,76 @@ def test_lex_plan_refuses_regs_past_the_register_budget(m, n, takes, monkeypatch
     finally:
         cuda_dense.plan_on.cache_clear()
     assert on_card == cuda_lex.lex_plan_for(m, n, 32, CAP, 132, {})
+
+
+@pytest.mark.parametrize(
+    "m,n,takes",
+    [
+        # 32 rows at 33 and at 128 columns; one row at 33; 24 rows at 128
+        (32, 1, True), (32, 96, True), (1, 32, True), (24, 104, True), (13, 25, True),
+        (23, 100, True),
+        # a 33rd row, a 129th column, 32 columns (the regs shape's, or K5's
+        # past 16 rows), no row
+        (33, 0, False), (33, 95, False), (32, 97, False), (1, 128, False), (1, 31, False),
+        (17, 15, False), (0, 40, False),
+    ],
+)
+def test_lex_plan_takes_regs_block_within_a_blocks_registers(m, n, takes, monkeypatch):
+    """The regs_block shape takes at most 32 rows (a row a warp lane) and
+    33 to 128 columns (one a thread of up to four warps, a window of 32
+    columns a warp): there K6's plan is ``regs_block_plan``, a block of
+    ``windows(n + m)`` warps, one lane a block, and is among the plans that
+    fit, and the rule a card applies (``cuda_dense.plan_on``, given an
+    H100's limits) gives it too; past those it raises and the plan is the
+    regs shape's or K5's rule."""
+    assert cuda_lex.regs_block_takes(m, n) is takes
+    if m == 0:
+        return
+    plan = cuda_lex.lex_plan_for(m, n, 32, CAP, 132, HELD)
+    assert (plan.shape == "regs_block") is takes
+    if takes:
+        assert not cuda_lex.regs_takes(m, n)
+        assert plan == cuda_lex.regs_block_plan(m, n)
+        assert (plan.C, plan.P, plan.threads) == (1, 1, 32 * cuda_dense.windows(n + m))
+        assert plan.threads <= 128 and (plan.threads - 32) < n + m <= plan.threads
+        assert plan in cuda_lex.lex_plans_that_fit(m, n, CAP)
+    else:
+        with pytest.raises(ValueError):
+            cuda_lex.regs_block_plan(m, n)
+        assert "regs_block" not in {q.shape for q in cuda_lex.lex_plans_that_fit(m, n, CAP)}
+        return
+    monkeypatch.setattr(cuda_dense, "device_limits", lambda device: (CAP, 132))
+    cuda_dense.plan_on.cache_clear()
+    try:
+        on_card = cuda_dense.plan_on(0, m, n + m, F64, 32, cuda_lex.LexPlan)
+    finally:
+        cuda_dense.plan_on.cache_clear()
+    assert on_card == cuda_lex.lex_plan_for(m, n, 32, CAP, 132, {})
+
+
+@pytest.mark.parametrize(
+    "m,n,want",
+    # 3AP10: four warps of 24 rows (a step's buffers 2 x 4 x (8 + 24)
+    # values and 2 x 4 x 3 int32, the start's 4 x 24 values, the finish's
+    # 4 x 3 values and 4 int32, the warps' 4 x (5 x 24 + 32) values);
+    # G2AP05 and G3AP05: two warps of 24 rows; 32 rows and 128 columns:
+    # four warps of 32
+    [(23, 100, 2048 + 96 + 768 + 96 + 16 + 4864), (12, 25, 1024 + 48 + 384 + 48 + 16 + 2432),
+     (13, 25, 1024 + 48 + 384 + 48 + 16 + 2432), (32, 96, 2560 + 96 + 1024 + 96 + 16 + 6144),
+     (25, 20, 1280 + 48 + 512 + 48 + 16 + 3072)],
+    ids=["3AP10", "G2AP05", "G3AP05", "rows32-cols128", "rows25-cols45"],
+)
+def test_lex_regs_block_counts_only_its_windows_bytes(m, n, want):
+    """The regs_block shape's shared bytes are its windows', winners' and
+    warps' copies alone (no tableau): each warp's winner with its tableau
+    column in the step's two buffers, the start's windows of the basic
+    values, the finish's windows of the objective and most fractional
+    columns, and each warp's copies of the rows' five terms and of its 32
+    columns' objective terms, each array 16-byte aligned, for the build's
+    24 or 32 rows of registers."""
+    plan = cuda_lex.regs_block_plan(m, n)
+    assert plan.smem_bytes == cuda_lex.lex_bnb_smem_bytes("regs_block", m, n, 1, 1) == want
+    assert cuda_lex.regs_block_rows(m) == (24 if m <= 24 else 32)
 
 
 def test_backend_reports_the_lanes_counts():

@@ -207,15 +207,15 @@ def test_chrome_trace_holds_every_span_as_a_user_annotation(profiled):
     assert on_timeline == {name: got["counts"][name] for name in SPANS}
 
 
-def test_a_k6_launch_on_the_regs_shape_counts_once(recorder, monkeypatch):
-    """``LexKernel._launch`` counts ``lex.plan.regs`` once for each K6
-    launch that ``launch_lex_bnb`` records on the regs shape (G3KP10's
-    4 x 14 LPs), while the recorder is on, beside the ``lex.launch`` span;
-    the card's launch (K6's rule on an H100's limits, recorded as the
-    wrapper records it) and events are stood in for here."""
+def k6_launches_counted(recorder, monkeypatch, name):
+    """Three ``LexKernel._launch`` calls on ``name``'s lanes, the last two
+    while the recorder is on, each in a ``lex.launch`` span: the plans the
+    wrapper picked (K6's rule on an H100's limits, recorded as the wrapper
+    records them) and the kernel; the card's launch and events are stood in
+    for here."""
     from moip_aira_tpu_torch.solver import cuda_lex, lex_torch
 
-    p = read_problem(os.path.join(EX, "G3KP10.lp"))
+    p = read_problem(os.path.join(EX, f"{name}.lp"))
     kern = lex_torch.make_lex_kernel(p, device="cpu")
     plans = []
 
@@ -239,16 +239,37 @@ def test_a_k6_launch_on_the_regs_shape_counts_once(recorder, monkeypatch):
     monkeypatch.setattr(lex_torch.torch.cuda, "Event", Done)
     monkeypatch.setattr(lex_torch.torch.cuda, "current_stream", lambda dev: None)
     rhs = torch.as_tensor(np.tile(p.initial_rhs(), (3, 1)), dtype=torch.float64)
-    perm = torch.tensor([[0, 1, 2]] * 3)
+    perm = torch.tensor([list(range(p.objcnt))] * 3)
     kern._launch(rhs, perm)
     assert not recorder.counts
     with trace.recording():
         for _ in range(2):
             with recorder.span("lex.launch"):
                 kern._launch(rhs, perm)
+    return plans, kern
+
+
+def test_a_k6_launch_on_the_regs_shape_counts_once(recorder, monkeypatch):
+    """``LexKernel._launch`` counts ``lex.plan.regs`` once for each K6
+    launch that ``launch_lex_bnb`` records on the regs shape (G3KP10's
+    4 x 14 LPs), while the recorder is on, beside the ``lex.launch`` span;
+    the card's launch (K6's rule on an H100's limits, recorded as the
+    wrapper records it) and events are stood in for here."""
+    plans, kern = k6_launches_counted(recorder, monkeypatch, "G3KP10")
     assert [(q.shape, q.P) for q in plans] == [("regs", 4)] * 3
     assert recorder.counts == {"lex.launch": 2, "lex.plan.regs": 2}
     assert kern.plan_launches == {("regs", 1, 4): 3} and kern.launches == 3
+
+
+def test_a_k6_launch_on_the_regs_block_shape_counts_once(recorder, monkeypatch):
+    """``LexKernel._launch`` counts ``lex.plan.regs_block`` (and no
+    ``lex.plan.regs``) once for each K6 launch recorded on the regs_block
+    shape (G3AP05's 13 x 38 LPs, a block of two warps), while the recorder
+    is on."""
+    plans, kern = k6_launches_counted(recorder, monkeypatch, "G3AP05")
+    assert [(q.shape, q.P, q.threads) for q in plans] == [("regs_block", 1, 64)] * 3
+    assert recorder.counts == {"lex.launch": 2, "lex.plan.regs_block": 2}
+    assert kern.plan_launches == {("regs_block", 1, 1): 3} and kern.launches == 3
 
 
 def test_enable_records_without_a_profiler(recorder, monkeypatch):
