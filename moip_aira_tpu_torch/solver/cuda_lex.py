@@ -166,6 +166,17 @@ class LexPlan(DenseLoopPlan):
             self.code, self.m, self.nc - self.m, self.C, self.threads, self.P
         )
 
+    def kernel_attrs(self) -> tuple:
+        """(registers a thread, local bytes a thread) of the build the plan
+        launches, as nvcc left it (``cudaFuncGetAttributes``): no local byte
+        means no spill; raises for a plan the kernel refuses."""
+        regs, local = ctypes.c_int(0), ctypes.c_int(0)
+        err = _lib().lex_bnb_attrs(self.code, self.m, self.nc - self.m, self.C, self.threads,
+                                   self.P, ctypes.byref(regs), ctypes.byref(local))
+        if err != 0:
+            raise RuntimeError(f"K6's build for {self}: CUDA error {err}")
+        return regs.value, local.value
+
 
 @functools.lru_cache(maxsize=None)
 def regs_plan(m: int, n: int, P: int = K5_PACK_LANES) -> LexPlan:
@@ -226,10 +237,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lex_bnb_smem_bytes.restype = ctypes.c_longlong
     lib.lex_bnb_max_clusters.argtypes = [ci] * 6
     lib.lex_bnb_max_clusters.restype = ci
-    lib.lex_bnb_regs_attrs.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
-    lib.lex_bnb_regs_attrs.restype = ci
-    lib.lex_bnb_regs_block_attrs.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
-    lib.lex_bnb_regs_block_attrs.restype = ci
+    lib.lex_bnb_attrs.argtypes = [ci] * 6 + [ctypes.POINTER(ci)] * 2
+    lib.lex_bnb_attrs.restype = ci
     lib.lex_bnb_launch.argtypes = [
         vp, ci, ci, ci, ci,  # W, m, n, k, batch
         vp, vp, vp, vp, vp, vp, vp, vp, vp,  # rhs, perm, C, lb, ub, row_lb, row_ub, is_int, obj_integral
@@ -257,20 +266,6 @@ def lex_plan(W: torch.Tensor, lanes: int) -> LexPlan:
     lane count)."""
     m, nc = W.shape
     return plan_on(device_index(W.device), m, nc, torch.float64, int(lanes), LexPlan)
-
-
-def regs_attrs(m: int, n: int, shape: str = "regs") -> tuple:
-    """(registers a thread, local bytes a thread) of the kernel of the regs
-    shape (or of ``shape`` "regs_block") for an LP of m rows and n
-    structural columns, as the build left them (``cudaFuncGetAttributes``):
-    no local byte means no spill."""
-    regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    attrs = {"regs": _lib().lex_bnb_regs_attrs,
-             "regs_block": _lib().lex_bnb_regs_block_attrs}[shape]
-    err = attrs(m, n, ctypes.byref(regs), ctypes.byref(local))
-    if err != 0:
-        raise RuntimeError(f"K6's {shape} kernel for {m} x {n + m}: CUDA error {err}")
-    return regs.value, local.value
 
 
 def lex_plans(W: torch.Tensor) -> list:

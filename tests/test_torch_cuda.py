@@ -678,31 +678,50 @@ def test_lex_kernel_on_the_card_equals_the_cpu(cuda_device, name, lanes, max_nod
     assert ((want[0] == LEX_RESOURCE).any()) == (max_nodes_stack == 4)
 
 
+#: the every-plan cases: (instance, lanes, limits of make_lex_kernel); the
+#: limits stop lanes (LEX_RESOURCE) on each of the lane driver's stop paths,
+#: under every engine: the stack's overflow (G2AP05 overflows a stack of 2,
+#: not of 4), the node limit and the LP's step limit (ITER_LIMIT)
+EVERY_PLAN_CASES = {
+    "G2AP05-12": ("G2AP05", 12, {}), "G3AP05-12": ("G3AP05", 12, {}),
+    "G3KP10-6": ("G3KP10", 6, {}), "KP6x12-6": ("KP6x12", 6, {}), "KP12x8-6": ("KP12x8", 6, {}),
+    "2AP20-8": ("2AP20", 8, {}), "2AP40-2": ("2AP40", 2, {}),
+    "G2AP05-12-stack2": ("G2AP05", 12, {"max_nodes_stack": 2}),
+    "2AP20-8-stack4": ("2AP20", 8, {"max_nodes_stack": 4}),
+    "G2AP05-12-nodes3": ("G2AP05", 12, {"max_bnb_nodes": 3}),
+    "2AP20-8-nodes8": ("2AP20", 8, {"max_bnb_nodes": 8}),
+    "G3KP10-6-nodes50": ("G3KP10", 6, {"max_bnb_nodes": 50}),
+    "G2AP05-12-iters24": ("G2AP05", 12, {"lp_max_iters": 24}),
+    "2AP20-8-iters110": ("2AP20", 8, {"lp_max_iters": 110}),
+    "G3KP10-6-iters10": ("G3KP10", 6, {"lp_max_iters": 10}),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "name,lanes",
-    [("G2AP05", 12), ("G3AP05", 12), ("G3KP10", 6), ("KP6x12", 6), ("KP12x8", 6),
-     ("2AP20", 8), ("2AP40", 2)],
-)
-def test_lex_kernel_every_plan_equals_the_cpu(cuda_device, name, lanes):
+@pytest.mark.parametrize("name,lanes,limits", list(EVERY_PLAN_CASES.values()),
+                         ids=list(EVERY_PLAN_CASES))
+def test_lex_kernel_every_plan_equals_the_cpu(cuda_device, name, lanes, limits):
     """K6 forced into every plan that fits (``cuda_lex.lex_plans``: a warp a
     lane at P = 1, 2, 4 and 8 in shared memory, and in registers where the
     LP has at most 16 rows and 32 columns, a block of warps with the LP in
     registers where it has at most 32 rows and 33 to 128 columns, a block,
     clusters of 2 and 4 with the tableau in shared and in global memory, at
     2AP40 global clusters of 2, 4 and 8): every output of every lane,
-    counts included, equal to the CPU's, each plan one launch; a plan that
-    fits K5 but not K6 raises before launching."""
+    counts included, equal to the CPU's, each plan one launch, also where
+    ``limits`` stop lanes through the lane driver's overflow, node-limit
+    and ITER_LIMIT paths under each plan's engine; a plan that fits K5 but
+    not K6 raises before launching."""
     from dataclasses import replace
 
     from moip_aira_tpu_torch.solver import cuda_lex
     from moip_aira_tpu_torch.solver.cuda_lp import LAUNCHES
-    from moip_aira_tpu_torch.solver.lex_torch import make_lex_kernel
+    from moip_aira_tpu_torch.solver.lex_torch import LEX_RESOURCE, make_lex_kernel
 
     p, rhs, perm = lex_case(name, lanes, seed=5)
-    cpu = make_lex_kernel(p, device="cpu")
+    cpu = make_lex_kernel(p, device="cpu", **limits)
     want = lex_outputs(cpu, cpu(rhs, perm))
-    kern = make_lex_kernel(p, device=cuda_device)
+    assert not limits or (want[0] == LEX_RESOURCE).any()
+    kern = make_lex_kernel(p, device=cuda_device, **limits)
     args = [torch.as_tensor(rhs, device=cuda_device), torch.as_tensor(perm, device=cuda_device)]
     plans = cuda_lex.lex_plans(kern.W)
     assert {q.shape for q in plans} == {
@@ -746,10 +765,10 @@ def test_lex_regs_kernel_spills_nothing(cuda_device, m, n):
     registers a thread; an LP past 16 rows or 32 columns has no build."""
     from moip_aira_tpu_torch.solver import cuda_lex
 
-    regs, local = cuda_lex.regs_attrs(m, n)
+    regs, local = cuda_lex.regs_plan(m, n).kernel_attrs()
     assert 0 < regs <= 255 and local == 0
     with pytest.raises(RuntimeError):
-        cuda_lex.regs_attrs(m, 33 - m)
+        cuda_lex.LexPlan(m, 33, cuda_lex.F64, "regs", 1, 128, 4).kernel_attrs()
 
 
 def ap3x10_case():
@@ -824,12 +843,15 @@ def test_lex_regs_block_kernel_spills_nothing(cuda_device, m, n):
     local byte, at most 255 registers a thread; an LP past 32 rows or 128
     columns, or of 32 columns or fewer, has no build."""
     from moip_aira_tpu_torch.solver import cuda_lex
+    from moip_aira_tpu_torch.solver.cuda_dense import windows
 
-    regs, local = cuda_lex.regs_attrs(m, n, "regs_block")
+    regs, local = cuda_lex.regs_block_plan(m, n).kernel_attrs()
     assert 0 < regs <= 255 and local == 0
-    for bad in ((m, 129 - m), (33, n), (m, 32 - m) if m < 32 else (1, 31)):
+    for bm, bn in ((m, 129 - m), (33, n), (m, 32 - m) if m < 32 else (1, 31)):
+        bad = cuda_lex.LexPlan(bm, bm + bn, cuda_lex.F64, "regs_block", 1,
+                               32 * windows(bm + bn), 1)
         with pytest.raises(RuntimeError):
-            cuda_lex.regs_attrs(*bad, "regs_block")
+            bad.kernel_attrs()
 
 
 @pytest.mark.cuda
